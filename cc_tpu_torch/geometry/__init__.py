@@ -1,1 +1,1 @@
-"""Geometry: bilinear sampling and flow warping."""
+"""Geometry: camera projection, rotations, rigid warps, bilinear sampling."""

@@ -1,1 +1,1 @@
-"""Losses (this slice carries only spatial_normalize)."""
+"""The five CC losses and their helpers (counterpart of cc_tpu/losses/)."""

@@ -6,6 +6,7 @@ reference nets, so reference-format state dicts load with strict=True.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -37,6 +38,27 @@ def upconv4_relu(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(nn.ConvTranspose2d(cin, cout, 4, 2, 1, 0), nn.ReLU())
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training forward moves running_var toward the
+    biased batch variance, as flax's BatchNorm in cc_tpu does
+    (cc_tpu/models/layers.py:314-315); torch's own moves it toward the
+    unbiased one. Names, parameters and buffers are nn.BatchNorm2d's, so
+    reference-format state dicts still load with strict=True."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2, 3))
+            var = x.var(dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
 class BasicBlock(nn.Module):
     """ResNet BasicBlock without BN in the residual path; BN only on the 1x1
     projection shortcut (DispResNet6.py:14-60)."""
@@ -50,7 +72,7 @@ class BasicBlock(nn.Module):
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 conv(inplanes, planes, 1, stride, bias=False, pad=0),
-                nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1))
+                BatchNorm2d(planes, eps=1e-5, momentum=0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(self.relu(self.conv1(x)))

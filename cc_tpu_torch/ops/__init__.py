@@ -1,1 +1,2 @@
-"""Compute ops: resampling and the local correlation cost volume."""
+"""Compute ops: resampling, the local correlation cost volume and its
+backward, and the row gather."""

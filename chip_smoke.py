@@ -9,18 +9,29 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 off for matmuls and cuDNN convs.
 2. build: every kernel from the sources in the checkout, timed.
-3. kernel vs plain: the correlation kernel against correlation_plain on
-   the same inputs at the main path's five shapes, a ragged shape and
-   FlowNetC6's P=21/d=2 shape: max abs error (tolerance ATOL), kernel and
-   plain device times (CUDA-graph replays, see time_device), and the bound
-   (bytes at the card's memory rate or fp32 operations at its peak).
-4. slice: forward_eval of the four paper-default nets at 832x256, batch 4,
+3. kernels vs plain, each at the shapes its path gives it: max abs error
+   (fails above its tolerance), kernel and plain device times (CUDA-graph
+   replays, see time_device), the bound (bytes at the card's memory rate or
+   fp32 operations at its peak, whichever is larger) and, where one PyTorch
+   call computes the same function, that call's time.
+   - K1, the correlation forward, and K1', its backward: the main path's
+     five shapes, a ragged shape and FlowNetC6's P=21/d=2 shape.
+   - K2, the row gather, at experiment E5's [256,832].
+4. gather: E5's path on the port, the row gather of E5's inputs.
+5. slice: forward_eval of the four paper-default nets at 832x256, batch 4,
    fp32, seeded init: shapes, finite values, exactly 10 correlation launches
    per forward, and one sample against the same nets on the CPU.
-5. timing: median of 3 windows of forwards, each ended by a synchronize;
+6. timing: median of 3 windows of forwards, each ended by a synchronize;
    then a torch.profiler breakdown of device time by kernel and of the
    costliest convolutions by shape.
-6. kernels: one entry per kernel of the path.
+7. train: build_train_step at bench.py's operating point (832x256, batch 4,
+   fp32): a few steps with finite metrics; exactly 10 K1 and 10 K1'
+   launches in one step; a fix_flownet step with 10 K1, 0 K1' and F's
+   parameters bit-equal; one 128x128 batch-2 step on the card against the
+   same step on the CPU (plain kernels) from the same weights and batch.
+8. train timing: 5 warm-up steps, the median of 3 windows of steps, each
+   ended by a synchronize, then a torch.profiler breakdown per step.
+9. kernels: one entry per kernel, with its launches on its path.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -37,9 +48,13 @@ import torch
 
 from cc_tpu_torch.ops import _build
 from cc_tpu_torch.ops import correlation as corr
-from cc_tpu_torch.train import TrainConfig, forward_eval, make_models
+from cc_tpu_torch.ops import row_gather as rg
+from cc_tpu_torch.train import (
+    METRICS, NETS, TrainConfig, build_train_step, forward_eval, make_models,
+    make_optimizer,
+)
 
-ATOL = 1e-5          # kernel vs plain, fp32 sums in another order
+ATOL = 1e-5          # correlation kernels vs plain, fp32 sums in another order
 SLICE_RTOL = 1e-3    # GPU vs CPU forward, relative to each output's max
 B = 4
 # Back2Future's correlation inputs at 832x256: (H, W, C) at levels 2..6
@@ -47,6 +62,19 @@ MAIN_SHAPES = [(64, 208, 32), (32, 104, 64), (16, 52, 96), (8, 26, 128),
                (4, 13, 192)]
 LAUNCHES_PER_SHAPE = 2  # forward and backward stream at each level
 EXTRA_CASES = [((2, 5, 7, 3), 9, 1), ((4, 32, 104, 256), 21, 2)]
+GATHER_HW = (256, 832)  # scripts/exp_gather.py:43,159-160
+# bench.py:80-112, the JAX package's timed train step
+BENCH = dict(wssim=0.997, smoothness_type="edgeaware",
+             cam_photo_loss_weight=1.0, mask_loss_weight=0.1,
+             smooth_loss_weight=0.1, flow_photo_loss_weight=0.5,
+             consensus_loss_weight=0.3, lr=1e-4)
+# one train step on the card vs on the CPU, from the same weights and batch
+TRAIN_METRIC_RTOL = 1e-3  # relative to each metric
+# first moments, relative to each net's largest: the odd occlusion or
+# consensus pixel on the other side of its threshold moves a decoder's
+# gradient (measured 0.92e-3, F's decoder_bwd3)
+TRAIN_MU_RTOL = 2e-3
+TRAIN_STATS_RTOL = 1e-4   # BatchNorm running stats, relative to magnitude
 # (memory bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets
 PEAKS = [("H100 PCIe", (2.0e12, 51e12)), ("H100 NVL", (3.9e12, 60e12)),
          ("H100", (3.35e12, 67e12)), ("H200", (4.8e12, 67e12))]
@@ -63,14 +91,23 @@ def peaks(name: str) -> tuple[float, float]:
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
-def bound_ms(shape, patch, bw, flops):
-    """Least time for one launch: each input read once, the output written
-    once, against 2*P*P*C operations per pixel. Returns (ms, "bytes"|...)."""
-    b, h, w, c = shape
-    nbytes = 4 * (2 * b * h * w * c + b * h * w * patch * patch)
-    ops = 2 * b * h * w * patch * patch * c
+def bound_ms(nbytes: float, ops: float, bw: float, flops: float):
+    """Least time for the work: bytes at the memory rate or operations at
+    the fp32 peak, whichever is larger. Returns (ms, "bytes"|"operations")."""
     t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def corr_work(shape, patch, backward: bool):
+    """(bytes, operations) of one correlation launch, each input read once
+    and each output written once. Forward: f1, f2 in, the cost volume out,
+    2*P*P*C operations per pixel. Backward: f1, f2, g in, df1, df2 out,
+    4*P*P*C operations per pixel."""
+    b, h, w, c = shape
+    pix, pp = b * h * w, patch * patch
+    if backward:
+        return 4 * pix * (4 * c + pp), 4 * pix * pp * c
+    return 4 * pix * (2 * c + pp), 2 * pix * pp * c
 
 
 def time_device(fn, n: int = 20, reps: int = 5) -> float:
@@ -97,43 +134,118 @@ def time_device(fn, n: int = 20, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / n)
+    del graph
     return statistics.median(times)
 
 
 def seeded_batch(cfg: TrainConfig, device, seed: int = 0) -> dict:
+    """bench.py:102-112: images uniform in [-1, 1], KITTI-like intrinsics."""
     r = np.random.RandomState(seed)
     b, h, w = cfg.batch_size, cfg.height, cfg.width
     tgt = r.rand(b, h, w, 3).astype(np.float32) * 2 - 1
     refs = r.rand(b, cfg.nb_ref_imgs, h, w, 3).astype(np.float32) * 2 - 1
-    return {"tgt": torch.from_numpy(tgt).to(device),
-            "refs": torch.from_numpy(refs).to(device)}
+    k = np.array([[w * 0.6, 0, w / 2], [0, h * 1.2, h / 2], [0, 0, 1]],
+                 dtype=np.float32)[None].repeat(b, 0)
+    batch = {"tgt": tgt, "refs": refs, "intrinsics": k,
+             "intrinsics_inv": np.linalg.inv(k).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_kernels(bw, flops):
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def phase_correlation(bw, flops, backward: bool):
+    """K1 (backward=False) or K1' against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(1 if backward else 0)
     cases = [((B, *s), 9, 1) for s in MAIN_SHAPES] + EXTRA_CASES
+    name = "correlation_backward" if backward else "correlation_forward"
     rows = []
     for shape, patch, dil in cases:
         f1 = torch.randn(shape, generator=gen, device="cuda")
         f2 = torch.randn(shape, generator=gen, device="cuda")
-        out = corr.correlation_cuda(f1, f2, patch, dil)
-        ref = corr.correlation_plain(f1, f2, patch, dil)
+        if backward:
+            g = torch.randn((*shape[:3], patch * patch), generator=gen,
+                            device="cuda")
+            kernel = lambda: corr.correlation_backward_cuda(f1, f2, g, patch,
+                                                            dil)
+            plain = lambda: corr.correlation_backward_plain(f1, f2, g, patch,
+                                                            dil)
+        else:
+            kernel = lambda: corr.correlation_cuda(f1, f2, patch, dil)
+            plain = lambda: corr.correlation_plain(f1, f2, patch, dil)
+        out, ref = kernel(), plain()
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        ms = time_device(lambda: corr.correlation_cuda(f1, f2, patch, dil))
-        plain_ms = time_device(
-            lambda: corr.correlation_plain(f1, f2, patch, dil))
-        bnd, by = bound_ms(shape, patch, bw, flops)
-        row = {"phase": "kernel", "name": "correlation_forward",
-               "shape": list(shape), "patch": patch, "dilation": dil,
-               "max_abs_err": err, "atol": ATOL, "ms": ms,
-               "plain_ms": plain_ms, "bound_us": bnd * 1e3, "bound_by": by}
+        if backward:
+            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        else:
+            err = float((out - ref).abs().max())
+        ms = time_device(kernel)
+        plain_ms = time_device(plain, n=5, reps=3)
+        bnd, by = bound_ms(*corr_work(shape, patch, backward), bw, flops)
+        row = {"phase": "kernel", "name": name, "shape": list(shape),
+               "patch": patch, "dilation": dil, "max_abs_err": err,
+               "atol": ATOL, "ms": ms, "plain_ms": plain_ms,
+               "bound_us": bnd * 1e3, "bound_by": by}
         emit(row)
         if not err <= ATOL:
-            raise AssertionError(f"correlation kernel disagrees at {shape} "
-                                 f"P={patch} d={dil}: {err} > {ATOL}")
+            raise AssertionError(f"{name} disagrees at {shape} P={patch} "
+                                 f"d={dil}: {err} > {ATOL}")
         rows.append(row)
     return rows
+
+
+def gather_inputs(in_range: bool):
+    """E5's table and indices (scripts/exp_gather.py:159-160): uniform
+    in-range indices; or a check set with a quarter out of range."""
+    h, w = GATHER_HW
+    r = np.random.RandomState(0)
+    img = torch.from_numpy(r.rand(h, w).astype(np.float32)).cuda()
+    lo, hi = (0, h) if in_range else (-h // 8, h + h // 8)
+    idx = torch.from_numpy(r.randint(lo, hi, (h, w)).astype(np.int32)).cuda()
+    return img, idx
+
+
+def phase_row_gather(bw, flops):
+    """K2 against its plain version (exact), timed on E5's in-range
+    indices beside torch.gather, the library call for the same function."""
+    img, idx = gather_inputs(in_range=False)
+    err = float((rg.row_gather_cuda(img, idx)
+                 - rg.row_gather_plain(img, idx)).abs().max())
+    torch.cuda.synchronize()
+    img, idx = gather_inputs(in_range=True)
+    idx64 = idx.long()
+    if not torch.equal(rg.row_gather_cuda(img, idx),
+                       torch.gather(img, 0, idx64)):
+        raise AssertionError("row gather kernel disagrees with torch.gather")
+    ms = time_device(lambda: rg.row_gather_cuda(img, idx))
+    plain_ms = time_device(lambda: rg.row_gather_plain(img, idx))
+    library_ms = time_device(lambda: torch.gather(img, 0, idx64))
+    # the table entries these indices name, each read once; idx in, out out
+    h, w = GATHER_HW
+    cols = torch.arange(w, device="cuda")
+    named = int(torch.unique(idx64 * w + cols).numel())
+    bnd, by = bound_ms(4 * (named + 2 * h * w), 0.0, bw, flops)
+    row = {"phase": "kernel", "name": "row_gather", "shape": [h, w],
+           "max_abs_err": err, "atol": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "torch.gather",
+           "table_entries_read": named, "bound_us": bnd * 1e3,
+           "bound_by": by}
+    emit(row)
+    if err != 0.0:
+        raise AssertionError(f"row gather kernel disagrees: {err}")
+    return row
+
+
+def phase_gather_path():
+    """E5's path on the port: the row gather of E5's inputs, launches
+    counted from 0."""
+    img, idx = gather_inputs(in_range=True)
+    rg.launches = 0
+    out = rg.row_gather(img, idx)
+    torch.cuda.synchronize()
+    launches = rg.launches
+    if launches != 1 or out.shape != idx.shape:
+        raise AssertionError(f"row gather path: {launches} launches")
+    emit({"phase": "gather", "what": "E5 row gather [256,832]",
+          "row_gather_launches": launches})
+    return launches
 
 
 def phase_slice(cfg: TrainConfig):
@@ -143,11 +255,11 @@ def phase_slice(cfg: TrainConfig):
     forward_eval(cfg, nets, batch)  # warm-up: cuDNN set-up
     torch.cuda.synchronize()
 
-    corr.launches = 0
+    corr.launches = corr.backward_launches = 0
     out = forward_eval(cfg, nets, batch)
     torch.cuda.synchronize()
     launches = corr.launches
-    if launches != 2 * len(MAIN_SHAPES):
+    if launches != 2 * len(MAIN_SHAPES) or corr.backward_launches:
         raise AssertionError(f"{launches} correlation launches in one "
                              f"forward, expected {2 * len(MAIN_SHAPES)}")
 
@@ -182,52 +294,213 @@ def phase_slice(cfg: TrainConfig):
     return nets, batch, launches
 
 
+def profile_breakdown(run, reps: int, wall_ms: float, what: str) -> dict:
+    """Device time per call of run() by kernel (CUPTI), over `reps` calls:
+    the top kernels, the correlation kernels, grid_sample forward and
+    backward, the convolutions in all and the costliest by shape, the idle
+    share against the wall time per call, and what the host issued per
+    call (CUDA runtime calls by name, ATen op calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in ("aten::convolution", "aten::convolution_backward")]
+    convs.sort(key=lambda e: e.device_time_total, reverse=True)
+    per = lambda us: us / reps / 1e3
+    busy = per(sum(e.self_device_time_total for e in kernels))
+    conv_ms = per(sum(e.device_time_total for e in prof.key_averages()
+                      if e.key in ("aten::convolution",
+                                   "aten::convolution_backward")))
+    # what the host does per call: its CUDA runtime calls by name (kernel
+    # launches, copies, synchronizations) and its count of ATen ops
+    runtime = {e.key: e.count / reps for e in prof.key_averages()
+               if e.device_type != DeviceType.CUDA and e.key.startswith("cuda")}
+    aten_ops = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("aten::")) / reps
+    named = lambda s: per(sum(e.self_device_time_total for e in kernels
+                              if s in e.key))
+    return {"phase": "profile", "what": what, "wall_ms": wall_ms,
+            "kernel_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "convolution_ms": conv_ms, "cuda_runtime_calls": runtime,
+            "aten_op_calls_nested": aten_ops,
+            "correlation_forward_ms": named("corr_fwd_kernel"),
+            "correlation_backward_ms": named("corr_bwd_kernel"),
+            "grid_sampler_2d_forward_ms": named("grid_sampler_2d_kernel"),
+            "grid_sampler_2d_backward_ms": named(
+                "grid_sampler_2d_backward_kernel"),
+            "top": [{"name": e.key[:100],
+                     "ms": per(e.self_device_time_total),
+                     "calls": e.count / reps} for e in kernels[:20]],
+            "top_convolutions": [
+                {"op": e.key, "input_shapes": e.input_shapes[:2],
+                 "ms": per(e.device_time_total), "calls": e.count / reps}
+                for e in convs[:12]]}
+
+
+def timed_windows(run, n: int, windows: int = 3) -> list[float]:
+    out = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / n)
+    return out
+
+
 def phase_timing(cfg, nets, batch, gpu: str):
     for _ in range(3):
         forward_eval(cfg, nets, batch)
     torch.cuda.synchronize()
-    n, windows = 10, []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            forward_eval(cfg, nets, batch)
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / n)
+    windows = timed_windows(lambda: forward_eval(cfg, nets, batch), 10)
     ms = statistics.median(windows)
     emit({"phase": "timing", "what": "forward_eval 832x256 b4 fp32",
           "ms_per_forward": ms, "window_ms": windows,
           "frames_per_s": cfg.batch_size * 1e3 / ms, "gpu": gpu})
+    emit(profile_breakdown(lambda: forward_eval(cfg, nets, batch), 3, ms,
+                           "forward_eval, per forward"))
 
-    # device time by kernel (CUPTI), over a few forwards
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(reps):
-            forward_eval(cfg, nets, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    # the costliest convolutions, by input and weight shape
-    convs = [e for e in prof.key_averages(group_by_input_shape=True)
-             if e.key == "aten::convolution"]
-    convs.sort(key=lambda e: e.device_time_total, reverse=True)
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    per_fwd = lambda us: us / reps / 1e3
-    busy = per_fwd(sum(e.self_device_time_total for e in kernels))
-    corr_ms = per_fwd(sum(e.self_device_time_total for e in kernels
-                          if "corr_fwd_kernel" in e.key))
-    emit({"phase": "profile", "wall_ms_per_forward": ms,
-          "kernel_ms_per_forward": busy, "idle_share": 1 - busy / ms,
-          "correlation_kernel_ms_per_forward": corr_ms,
-          "top": [{"name": e.key[:100],
-                   "ms_per_forward": per_fwd(e.self_device_time_total),
-                   "calls_per_forward": e.count / reps} for e in kernels[:20]],
-          "top_convolutions": [
-              {"input_weight_shapes": e.input_shapes[:2],
-               "ms_per_forward": per_fwd(e.device_time_total),
-               "calls_per_forward": e.count / reps} for e in convs[:10]]})
+
+def _count_step(step, batch) -> tuple[dict, int, int]:
+    """One step with the launch counts set to 0 just before it."""
+    corr.launches = corr.backward_launches = 0
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    return metrics, corr.launches, corr.backward_launches
+
+
+def _finite(metrics: dict) -> dict:
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"non-finite metrics: {values}")
+    return values
+
+
+def phase_train(gpu: str):
+    """The train path at bench.py's operating point, its launches, its
+    frozen phase, and its timing and profile."""
+    cfg = TrainConfig(height=256, width=832, batch_size=B, **BENCH)
+    nets = make_models(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    opt_state = make_optimizer(cfg).init(nets)
+    step = build_train_step(cfg, nets, opt_state)
+    batch = seeded_batch(cfg, "cuda")
+
+    warm = [_finite(step(batch)) for _ in range(5)]
+    torch.cuda.synchronize()
+    metrics, k1, k1b = _count_step(step, batch)
+    values = _finite(metrics)
+    expect = 2 * len(MAIN_SHAPES)
+    if (k1, k1b) != (expect, expect):
+        raise AssertionError(f"train step: {k1} K1 and {k1b} K1' launches, "
+                             f"expected {expect} of each")
+
+    windows = timed_windows(lambda: step(batch), 5)
+    ms = statistics.median(windows)
+    emit({"phase": "train_timing", "what": "train step 832x256 b4 fp32",
+          "ms_per_step": ms, "window_ms": windows,
+          "frames_per_s": cfg.batch_size * 1e3 / ms, "gpu": gpu,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    emit(profile_breakdown(lambda: step(batch), 3, ms,
+                           "train step, per step"))
+
+    # a competition phase: F frozen, on the same nets and optimizer state
+    frozen = build_train_step(cfg.replace(fix_flownet=True), nets, opt_state)
+    flow_before = [p.detach().clone() for p in nets["flow"].parameters()]
+    fmetrics, f_k1, f_k1b = _count_step(frozen, batch)
+    fvalues = _finite(fmetrics)
+    flow_equal = all(torch.equal(a, p) for a, p in
+                     zip(flow_before, nets["flow"].parameters()))
+    if (f_k1, f_k1b) != (expect, 0) or not flow_equal:
+        raise AssertionError(f"fix_flownet step: {f_k1} K1, {f_k1b} K1' "
+                             f"launches, F unchanged: {flow_equal}")
+    emit({"phase": "train", "config": "bench.py:80-112 (wssim 0.997, "
+          "edge-aware, w1..w5 1/0.1/0.1/0.5/0.3, lr 1e-4)",
+          "hw": [cfg.height, cfg.width], "batch": cfg.batch_size,
+          "warmup_losses": [m["loss"] for m in warm],
+          "step_metrics": values, "k1_launches": k1, "k1b_launches": k1b,
+          "fix_flownet": {"metrics": fvalues, "k1_launches": f_k1,
+                          "k1b_launches": f_k1b,
+                          "flow_params_bit_equal": flow_equal},
+          "adam_count": opt_state.count})
+    return k1, k1b
+
+
+def phase_train_vs_cpu():
+    """One 128x128 batch-2 step on the card and on the CPU (plain kernels)
+    from the same weights and batch: the metrics, the first moments (which
+    are (1-b1)*grad after one step from zero), the updated parameters and
+    the BatchNorm running stats."""
+    cfg = TrainConfig(height=128, width=128, batch_size=2, **BENCH)
+    nets = make_models(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(1))
+    nets_cpu = copy.deepcopy(nets).cpu()
+    batch = seeded_batch(cfg, "cuda", seed=1)
+    results = []
+    for n, dev in ((nets, "cuda"), (nets_cpu, "cpu")):
+        st = make_optimizer(cfg).init(n)
+        m = build_train_step(cfg, n, st)({k: v.to(dev)
+                                          for k, v in batch.items()})
+        results.append((_finite(m), st, n))
+    (m_gpu, st_gpu, _), (m_cpu, st_cpu, _) = results
+
+    report, failures = {"metrics": {}, "mu": {}, "params": {}, "stats": {}}, []
+
+    def check(group, key, err, tol, **more):
+        report[group][key] = {"max_abs_err": err, "tol": tol, **more}
+        if not err <= tol:
+            failures.append(f"{group} {key}: {err} > {tol}")
+
+    for k in METRICS:
+        check("metrics", k, abs(m_gpu[k] - m_cpu[k]),
+              TRAIN_METRIC_RTOL * max(abs(m_cpu[k]), 1e-6))
+    for name in NETS:
+        names = [k for k, _ in nets_cpu[name].named_parameters()]
+        errs = {k: (float((a.cpu() - b).abs().max()), float(b.abs().max()))
+                for k, a, b in zip(names, st_gpu.mu[name], st_cpu.mu[name])}
+        worst = max(errs, key=lambda k: errs[k][0])
+        ref_max = max(m for _, m in errs.values())
+        check("mu", name, errs[worst][0], TRAIN_MU_RTOL * ref_max,
+              worst=worst, worst_tensor_max=errs[worst][1])
+        sd_gpu, sd_cpu = nets[name].state_dict(), nets_cpu[name].state_dict()
+        perr = max(float((sd_gpu[k].cpu() - v).abs().max())
+                   for k, v in sd_cpu.items() if v.is_floating_point()
+                   and not k.endswith(("running_mean", "running_var")))
+        # Adam's first step is about lr*sign(grad): a near-zero gradient of
+        # the other sign moves a parameter up to 2*lr apart
+        check("params", name, perr, 2 * cfg.lr + 1e-6)
+        for k, v in sd_cpu.items():
+            if k.endswith(("running_mean", "running_var")):
+                check("stats", f"{name}.{k}",
+                      float((sd_gpu[k].cpu() - v).abs().max()),
+                      TRAIN_STATS_RTOL * max(1.0, float(v.abs().max())))
+    emit({"phase": "train_vs_cpu", "hw": [128, 128], "batch": 2,
+          "metrics_gpu": m_gpu, "metrics_cpu": m_cpu, **report})
+    if failures:
+        raise AssertionError("train step, card vs CPU: " + "; ".join(failures))
+
+
+def kernel_entry(name, source, replaces, rows, main_rows, per_path,
+                 launches, library_ms=None):
+    """One `kernels` entry. Times and bounds are per run of the kernel's
+    path: `per_path` launches at each of `main_rows`' shapes; the error is
+    the largest over all `rows`."""
+    total = lambda key, by=None: per_path * sum(
+        r[key] for r in main_rows if by in (None, r["bound_by"]))
+    bound_by = max(("bytes", "operations"), key=lambda by: total("bound_us", by))
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_us") / 1e3, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -251,31 +524,42 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build()
     seconds = time.perf_counter() - t0
-    with open(paths["correlation"] + ".log") as f:
-        ptxas = [l.strip() for l in f if "registers" in l or "spill" in l]
+    ptxas = {}
+    for src, path in paths.items():
+        with open(path + ".log") as f:
+            ptxas[src] = [l.strip() for l in f if "registers" in l
+                          or "spill" in l]
     emit({"phase": "build", "seconds": seconds, "libraries": sorted(paths),
           "ptxas": ptxas})
 
-    rows = phase_kernels(bw, flops)
-    cfg = TrainConfig()
-    nets, batch, launches = phase_slice(cfg)
-    phase_timing(cfg, nets, batch, gpu)
+    fwd_rows = phase_correlation(bw, flops, backward=False)
+    bwd_rows = phase_correlation(bw, flops, backward=True)
+    gather_row = phase_row_gather(bw, flops)
+    gather_launches = phase_gather_path()
 
-    # per forward: LAUNCHES_PER_SHAPE launches at each main-path shape
-    main_rows = rows[:len(MAIN_SHAPES)]
-    per_fwd = lambda key, by=None: LAUNCHES_PER_SHAPE * sum(
-        r[key] for r in main_rows if by in (None, r["bound_by"]))
-    bound_by = max(("bytes", "operations"),
-                   key=lambda by: per_fwd("bound_us", by))
-    emit({"kernels": [{
-        "name": "correlation_forward", "route": "cuda",
-        "source": "cc_tpu_torch/ops/csrc/correlation.cu",
-        "replaces": "cc_tpu/ops/correlation_pallas.py:77",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_us") / 1e3, "bound_by": bound_by,
-        "library_ms": None, "ok": True}]})
+    cfg = TrainConfig()
+    nets, batch, _ = phase_slice(cfg)
+    phase_timing(cfg, nets, batch, gpu)
+    del nets, batch
+    torch.cuda.empty_cache()
+
+    k1, k1b = phase_train(gpu)
+    phase_train_vs_cpu()
+
+    main = len(MAIN_SHAPES)
+    emit({"kernels": [
+        kernel_entry("correlation_forward",
+                     "cc_tpu_torch/ops/csrc/correlation.cu",
+                     "cc_tpu/ops/correlation_pallas.py:77", fwd_rows,
+                     fwd_rows[:main], LAUNCHES_PER_SHAPE, k1),
+        kernel_entry("correlation_backward",
+                     "cc_tpu_torch/ops/csrc/correlation.cu",
+                     "cc_tpu/ops/correlation_pallas.py:112", bwd_rows,
+                     bwd_rows[:main], LAUNCHES_PER_SHAPE, k1b),
+        kernel_entry("row_gather", "cc_tpu_torch/ops/csrc/row_gather.cu",
+                     "scripts/exp_gather.py:173", [gather_row], [gather_row],
+                     1, gather_launches,
+                     library_ms=gather_row["library_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -91,3 +91,49 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tc.correlation_cuda(torch.from_numpy(a), torch.from_numpy(b), 9)
 
+
+
+@pytest.mark.parametrize("patch,dilation", [(3, 1), (9, 1), (21, 2)])
+def test_backward_plain_matches_corr_bwd(interpret_mode, patch, dilation):
+    """correlation_backward_plain against cc_tpu's _corr_bwd, reached
+    through jax.vjp of the Pallas kernel (interpret mode), on one g."""
+    a, b = _inputs((2, 8, 12, 4), 5)
+    g = np.random.RandomState(6).randn(2, 8, 12, patch * patch).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda x, y: cp.correlation_pallas(x, y, patch,
+                                                        dilation),
+                     jnp.asarray(a), jnp.asarray(b))
+    ga, gb = vjp(jnp.asarray(g))
+    df1, df2 = tc.correlation_backward_plain(
+        torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(g), patch,
+        dilation)
+    # sums of up to P*P products of randn values, in another order
+    assert_close(df1, ga, 1e-5, "df1")
+    assert_close(df2, gb, 1e-5, "df2")
+
+
+@pytest.mark.parametrize("patch,dilation", [(9, 1), (5, 3)])
+def test_backward_plain_equals_autograd_of_plain(patch, dilation):
+    """On CPU tensors `correlation` is the plain version under autograd;
+    its gradients are what correlation_backward_plain gives."""
+    a, b = _inputs((1, 7, 10, 5), 7)
+    g = torch.from_numpy(np.random.RandomState(8).randn(
+        1, 7, 10, patch * patch).astype(np.float32))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    before = (tc.launches, tc.backward_launches)
+    tc.correlation(ta, tb, patch, dilation).backward(g)
+    assert (tc.launches, tc.backward_launches) == before
+    df1, df2 = tc.correlation_backward_plain(torch.from_numpy(a),
+                                             torch.from_numpy(b), g, patch,
+                                             dilation)
+    assert_close(ta.grad, df1, 1e-5, "df1")
+    assert_close(tb.grad, df2, 1e-5, "df2")
+
+
+def test_backward_wrapper_rejects_cpu_tensors():
+    a, b = _inputs(SHAPE, 9)
+    g = torch.zeros(*SHAPE[:3], 81)
+    with pytest.raises(ValueError, match="CUDA"):
+        tc.correlation_backward_cuda(torch.from_numpy(a), torch.from_numpy(b),
+                                     g, 9)

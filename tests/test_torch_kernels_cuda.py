@@ -1,7 +1,10 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+the correlation forward (K1) and backward (K1'), the autograd Function that
+joins them, and the row gather (K2).
 
-Needs a CUDA device and skips without one. It imports no JAX, so on a
-machine without JAX it runs without the suite's conftest:
+Every test here carries the `cuda` marker and skips without a CUDA device.
+The file imports no JAX, so on a machine without JAX it runs without the
+suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
@@ -10,12 +13,21 @@ import pytest
 import torch
 
 from cc_tpu_torch.ops import correlation as tc
+from cc_tpu_torch.ops import row_gather as rg
 # Imported through tests/ itself, which pytest puts on the path: where an
 # installed package is named `tests`, that package hides tests.torch_port_util.
 from torch_port_util import assert_close
 
 # fp32 sums of C products taken in another order than the plain version's
 ATOL = 1e-5
+CORR_CASES = [
+    ((2, 5, 7, 3), 9, 1),          # ragged: W and C below one tile
+    ((2, 16, 80, 32), 9, 1),       # several w-tiles, one partial
+    ((1, 12, 20, 20), 21, 2),      # FlowNetC6's patch and dilation
+    ((1, 6, 9, 17), 3, 3),
+]
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -26,16 +38,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,patch,dilation", [
-    ((2, 5, 7, 3), 9, 1),          # ragged: W and C below one tile
-    ((2, 16, 80, 32), 9, 1),       # several w-tiles, one partial
-    ((1, 12, 20, 20), 21, 2),      # FlowNetC6's patch and dilation
-    ((1, 6, 9, 17), 3, 3),
-])
+def _randn(shape, device, seed=0):
+    r = np.random.RandomState(seed)
+    return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES)
 def test_correlation_kernel_matches_plain(cuda, shape, patch, dilation):
-    r = np.random.RandomState(0)
-    a, b = (torch.from_numpy(r.randn(*shape).astype(np.float32)).to(cuda)
-            for _ in range(2))
+    a, b = _randn(shape, cuda, 0), _randn(shape, cuda, 7)
     before = tc.launches
     out = tc.correlation(a, b, patch, dilation)
     ref = tc.correlation_plain(a, b, patch, dilation)
@@ -52,5 +62,70 @@ def test_correlation_kernel_rejects_what_it_does_not_take(cuda):
         tc.correlation_cuda(a, a, 8)
     with pytest.raises(ValueError):
         tc.correlation_cuda(a.transpose(1, 2), a.transpose(1, 2), 9)
-    with pytest.raises(RuntimeError):
-        tc.correlation_cuda(a.requires_grad_(), a, 9)
+    g = torch.zeros(1, 4, 4, 81, device=cuda)
+    with pytest.raises(ValueError):
+        tc.correlation_backward_cuda(a, a, g[..., :80], 9)
+    with pytest.raises(ValueError):
+        tc.correlation_backward_cuda(a, a, g.transpose(1, 2), 9)
+
+
+@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES)
+def test_correlation_backward_kernel_matches_plain(cuda, shape, patch,
+                                                   dilation):
+    a, b = _randn(shape, cuda, 1), _randn(shape, cuda, 2)
+    g = _randn((*shape[:3], patch * patch), cuda, 3)
+    before = tc.backward_launches
+    df1, df2 = tc.correlation_backward_cuda(a, b, g, patch, dilation)
+    ref1, ref2 = tc.correlation_backward_plain(a, b, g, patch, dilation)
+    torch.cuda.synchronize()
+    assert tc.backward_launches == before + 1
+    # sums of up to P*P*... products taken in another order
+    assert_close(df1, ref1, ATOL, f"df1 {shape} P={patch} d={dilation}")
+    assert_close(df2, ref2, ATOL, f"df2 {shape} P={patch} d={dilation}")
+    # gathers only, no atomics: the same bits on every run
+    again = tc.correlation_backward_cuda(a, b, g, patch, dilation)
+    assert torch.equal(again[0], df1) and torch.equal(again[1], df2)
+
+
+@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES[:3])
+def test_correlation_function_gradients_match_autograd_of_plain(
+        cuda, shape, patch, dilation):
+    """Autograd through `correlation` (K1 and K1') against autograd through
+    correlation_plain, with a non-contiguous output gradient as
+    Back2Future's reorder-and-permute gives."""
+    a, b = _randn(shape, cuda, 4), _randn(shape, cuda, 5)
+    cot = _randn((*shape[:3], patch * patch), cuda, 6)
+    perm = torch.randperm(patch * patch, device=cuda)
+    grads = []
+    for fn in (tc.correlation, tc.correlation_plain):
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = fn(x, y, patch, dilation)[..., perm].permute(0, 3, 1, 2)
+        (out * cot[..., perm].permute(0, 3, 1, 2)).sum().backward()
+        grads.append((x.grad, y.grad))
+    assert_close(grads[0][0], grads[1][0], ATOL, "df1")
+    assert_close(grads[0][1], grads[1][1], ATOL, "df2")
+
+
+@pytest.mark.parametrize("rows,n,w", [(256, 256, 832), (9, 5, 7)])
+def test_row_gather_kernel_matches_plain(cuda, rows, n, w):
+    r = np.random.RandomState(rows)
+    img = torch.from_numpy(r.rand(rows, w).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(r.randint(-rows // 4, rows + rows // 4, (n, w))
+                           .astype(np.int32)).to(cuda)
+    before = rg.launches
+    out = rg.row_gather(img, idx)
+    ref = rg.row_gather_plain(img, idx)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1
+    assert_close(out, ref, 0.0, f"[{rows},{w}] by [{n},{w}]")
+
+
+def test_row_gather_kernel_rejects_what_it_does_not_take(cuda):
+    img = torch.zeros(4, 6, device=cuda)
+    idx = torch.zeros(4, 6, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rg.row_gather_cuda(img, idx.long())
+    with pytest.raises(ValueError):
+        rg.row_gather_cuda(img, idx[:, :5])
+    with pytest.raises(ValueError):
+        rg.row_gather_cuda(img.t(), idx.t())

@@ -1,0 +1,221 @@
+"""The port's joint train step against cc_tpu's build_train_step, from the
+same weights and batch: the six metrics, the gradients (as Adam's first
+moments after one step from zero moments, which are exactly (1-b1)*grad),
+the updated parameters and the updated BatchNorm running stats; a
+frozen-phase step; and the BatchNorm running-variance rule.
+
+The JAX step is compiled once, with test_train_step's config, batch and
+donate=False: its program is the same as test_train_step's, so the
+persistent compile cache can serve both files. The variables' structure
+comes from jax.eval_shape of init_state and their values are drawn with
+numpy: init_state itself is not run.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import optax
+import torch
+
+from cc_tpu.train import build_train_step as jax_build_train_step
+from cc_tpu.train import init_state, make_models as jax_make_models
+from cc_tpu.train.state import TrainState, make_optimizer as jax_make_optimizer
+from cc_tpu_torch.models.layers import BatchNorm2d
+from cc_tpu_torch.train import (
+    METRICS, NETS, TrainConfig, build_train_step, make_models, make_optimizer,
+)
+from cc_tpu_torch.weights import load_flax_weights, state_dict_from_flax
+from tests.test_train_step import synth_batch, tiny_config
+from tests.torch_port_util import assert_close, draw_flax_variables
+
+torch.set_num_threads(2)
+
+# Metrics: fp32 losses summed in another order through four nets and the
+# loss stack; relative to each metric's magnitude.
+METRIC_RTOL = 1e-4
+# First moments, (1-b1)*grad: backward sums in another order through up to
+# ~40 layers, and the odd occlusion-mask pixel on the other side of its
+# threshold; relative to the largest entry of each tensor, plus a floor of
+# MU_FLOOR times the net's largest entry for a tensor whose gradient is
+# rounding noise (DispResNet6's conv7 projection: BatchNorm over 2 values
+# at 1x1, whose output does not depend on its input).
+MU_RTOL = 2e-3
+MU_FLOOR = 1e-6
+# Updated parameters: besides the 2*lr bound below, the share of entries
+# that may differ by more than 1e-6 (measured: 0.05%)
+PARAM_MOVED_SHARE = 0.01
+# BatchNorm running stats after one step: a batch mean and variance of
+# activations that agree to ~1e-5; relative to each tensor's magnitude.
+STATS_RTOL = 1e-4
+
+
+def _archs(cfg):
+    return {"disp": cfg.dispnet, "pose": cfg.posenet, "mask": cfg.masknet,
+            "flow": cfg.flownet}
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState inside an optax chain's state."""
+    for s in jax.tree_util.tree_leaves(
+            opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState)):
+        if isinstance(s, optax.ScaleByAdamState):
+            return s
+    raise AssertionError("no ScaleByAdamState")
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    """One cc_tpu train step on test_train_step's config and batch."""
+    cfg = tiny_config()
+    shapes = jax.eval_shape(lambda k: init_state(cfg, k),
+                            jax.random.PRNGKey(0))
+    r = np.random.RandomState(3)
+    params = draw_flax_variables(shapes.params, r)
+    stats = draw_flax_variables(shapes.batch_stats, r)
+    # zero moments and count, without running optax's init op by op
+    opt_state = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax.eval_shape(jax_make_optimizer(cfg).init, params))
+    state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
+                       step=np.zeros((), np.int32))
+    batch = {k: np.array(v) for k, v in synth_batch(cfg).items()}
+    step = jax_build_train_step(cfg, jax_make_models(cfg), donate=False)
+    new_state, metrics = jax.device_get(step(state, batch))
+    return cfg, params, stats, batch, new_state, metrics
+
+
+def _port(jcfg, params, stats, **changes):
+    cfg = TrainConfig(**{f: getattr(jcfg, f)
+                         for f in TrainConfig.__dataclass_fields__})
+    cfg = cfg.replace(**changes)
+    nets = make_models(cfg, device="cpu")
+    for name, arch in _archs(cfg).items():
+        load_flax_weights(nets[name], arch, params[name], stats[name])
+    return cfg, nets
+
+
+def _by_name(net, tensors):
+    return {k: t for (k, _), t in zip(net.named_parameters(), tensors)}
+
+
+@pytest.fixture(scope="module")
+def port_step(jax_step):
+    jcfg, params, stats, batch, _, _ = jax_step
+    cfg, nets = _port(jcfg, params, stats)
+    opt_state = make_optimizer(cfg).init(nets)
+    metrics = build_train_step(cfg, nets, opt_state)(batch)
+    return cfg, nets, opt_state, metrics
+
+
+def test_metrics_match(jax_step, port_step):
+    ref = jax_step[5]
+    out = port_step[3]
+    assert set(out) == set(ref) == set(METRICS)
+    for k in METRICS:
+        e = float(ref[k])
+        assert np.isfinite(e) and e != 0.0, (k, e)
+        assert_close(out[k], np.float32(e), METRIC_RTOL * abs(e), k)
+
+
+def test_first_moments_match_gradients(jax_step, port_step):
+    jcfg, _, _, _, new_state, _ = jax_step
+    _, nets, opt_state, _ = port_step
+    assert opt_state.count == int(_adam_state(new_state.opt_state).count) == 1
+    mu = _adam_state(new_state.opt_state).mu
+    for name, arch in _archs(jcfg).items():
+        ref = state_dict_from_flax(arch, mu[name], new_state.batch_stats[name])
+        mine = _by_name(nets[name], opt_state.mu[name])
+        assert set(mine) <= set(ref)
+        net_max = max(float(np.max(np.abs(ref[k]))) for k in mine)
+        for k, t in mine.items():
+            tol = (MU_RTOL * float(np.max(np.abs(ref[k])))
+                   + MU_FLOOR * net_max)
+            assert_close(t, ref[k], tol, f"{name}.{k}")
+
+
+def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
+    jcfg, _, _, _, new_state, _ = jax_step
+    _, nets, _, _ = port_step
+    # Adam's first step moves each parameter by about lr*sign(grad): where
+    # a near-zero gradient takes the other sign, the two differ by up to
+    # 2*lr
+    tol = 2 * jcfg.lr + 1e-6
+    n_far = n_all = 0
+    for name, arch in _archs(jcfg).items():
+        ref = state_dict_from_flax(arch, new_state.params[name],
+                                   new_state.batch_stats[name])
+        mine = nets[name].state_dict()
+        assert set(mine) == set(ref)
+        for k, t in mine.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            e = np.asarray(ref[k])
+            if k.endswith(("running_mean", "running_var")):
+                assert_close(t, e, STATS_RTOL * max(1.0, np.abs(e).max()),
+                             f"{name}.{k}")
+            else:
+                assert_close(t, e, tol, f"{name}.{k}")
+                n_far += int((np.abs(t.numpy() - e) > 1e-6).sum())
+                n_all += e.size
+    assert n_far <= PARAM_MOVED_SHARE * n_all, (n_far, n_all)
+
+
+def test_frozen_phase_step(jax_step):
+    """fix_flownet and fix_masknet, as test_train_step.py:82: the frozen
+    nets' parameters and moments stay bit-equal, the others move, and
+    DispResNet6's running stats move (every net runs in train mode)."""
+    jcfg, params, stats, batch, _, _ = jax_step
+    cfg, nets = _port(jcfg, params, stats, fix_flownet=True,
+                      fix_masknet=True)
+    before = {k: v.clone() for k, v in nets.state_dict().items()}
+    opt_state = make_optimizer(cfg).init(nets)
+    metrics = build_train_step(cfg, nets, opt_state)(batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert opt_state.count == 1
+    after = nets.state_dict()
+    for name in NETS:
+        moved = [k for k in after if k.startswith(name + ".")
+                 and not torch.equal(after[k], before[k])]
+        if name in ("flow", "mask"):
+            assert not moved, moved
+            assert all(not m.any() for m in opt_state.mu[name])
+            assert all(not v.any() for v in opt_state.nu[name])
+        else:
+            assert moved
+    stats_keys = [k for k in after if k.startswith("disp.")
+                  and k.endswith(("running_mean", "running_var"))]
+    assert stats_keys
+    assert all(not torch.equal(after[k], before[k]) for k in stats_keys)
+
+
+def test_batchnorm_running_stats_follow_flax():
+    """The port's BatchNorm2d against flax's nn.BatchNorm (momentum 0.9) as
+    DispResNet6's projection shortcut uses it: output and updated running
+    mean and (biased) running variance, at batch 2."""
+    import flax.linen as fnn
+    r = np.random.RandomState(7)
+    x = r.randn(2, 3, 5, 4).astype(np.float32) * 2 + 1  # NHWC
+    scale = r.uniform(0.5, 1.5, 4).astype(np.float32)
+    bias = r.uniform(-0.5, 0.5, 4).astype(np.float32)
+    mean = r.uniform(-0.5, 0.5, 4).astype(np.float32)
+    var = r.uniform(0.5, 1.5, 4).astype(np.float32)
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    out, upd = bn.apply({"params": {"scale": scale, "bias": bias},
+                         "batch_stats": {"mean": mean, "var": var}},
+                        jnp.asarray(x), mutable=["batch_stats"])
+
+    mine = BatchNorm2d(4, eps=1e-5, momentum=0.1).train()
+    with torch.no_grad():
+        mine.weight.copy_(torch.from_numpy(scale))
+        mine.bias.copy_(torch.from_numpy(bias))
+        mine.running_mean.copy_(torch.from_numpy(mean))
+        mine.running_var.copy_(torch.from_numpy(var))
+    y = mine(torch.from_numpy(x).permute(0, 3, 1, 2))
+    # single-layer fp32 statistics over 30 values
+    assert_close(y.permute(0, 2, 3, 1), out, 1e-5, "output")
+    assert_close(mine.running_mean, upd["batch_stats"]["mean"], 1e-6, "mean")
+    assert_close(mine.running_var, upd["batch_stats"]["var"], 1e-6, "var")
+    # torch's own rule would have moved it toward the unbiased variance
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    unbiased = 0.9 * var + 0.1 * x.reshape(-1, 4).var(0) * n / (n - 1)
+    assert np.abs(mine.running_var.detach().numpy() - unbiased).max() > 1e-3
