@@ -4,6 +4,7 @@ from cc_tpu_torch.models.back2future import Back2Future
 from cc_tpu_torch.models.dispnet import (
     DispNet, DispNetS, DispNetS6, DispResNet6, DispResNetS6,
 )
+from cc_tpu_torch.models.flownetc import FlowNetC6
 from cc_tpu_torch.models.masknet import MaskNet6
 from cc_tpu_torch.models.posenet import PoseNetB6
 
@@ -15,6 +16,7 @@ _REGISTRY = {
     "PoseNetB6": PoseNetB6,
     "MaskNet6": MaskNet6,
     "Back2Future": Back2Future,
+    "FlowNetC6": FlowNetC6,
 }
 
 
@@ -28,4 +30,5 @@ def build(name: str, **kwargs):
 __all__ = [
     "build", "DispNet", "DispNetS", "DispNetS6", "DispResNet6",
     "DispResNetS6", "PoseNetB6", "MaskNet6", "Back2Future",
+    "FlowNetC6",
 ]

@@ -34,6 +34,7 @@ from cc_tpu_torch.losses.smoothness import (
 from cc_tpu_torch.train.config import TrainConfig
 from cc_tpu_torch.train.state import AdamState, make_optimizer
 
+FLOWNETS = ("Back2Future", "FlowNetC6")
 METRICS = ("loss", "photo_cam_loss", "explainability_loss", "smooth_loss",
            "photo_flow_loss", "consensus_loss")
 
@@ -56,17 +57,26 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _nhwc_all(x):
+    if x is None:
+        return None
     if isinstance(x, (list, tuple)):
         return [_nhwc(t) for t in x]
     return _nhwc(x)
 
 
+def _check_ported(cfg: TrainConfig) -> None:
+    if cfg.compute_dtype != "float32" or cfg.loss_dtype != "float32":
+        raise NotImplementedError("only float32 is ported so far")
+    if cfg.flownet not in FLOWNETS:
+        raise NotImplementedError(f"flownet {cfg.flownet!r} is not ported yet")
+
+
 def forward_all(cfg: TrainConfig, nets: nn.ModuleDict, batch: dict,
                 training: bool = False) -> dict:
     """Run all four nets on the device of their parameters. Returns NHWC
-    outputs; in training mode the per-scale outputs are lists."""
-    if cfg.flownet != "Back2Future":
-        raise NotImplementedError(f"flownet {cfg.flownet!r} is not ported yet")
+    outputs; in training mode the per-scale outputs are lists. FlowNetC6
+    gives no occlusion: `occ` is None."""
+    _check_ported(cfg)
     device = next(nets.parameters()).device
     nets.train(training)
     tgt = _device_normalize(torch.as_tensor(batch["tgt"]).to(device))
@@ -77,7 +87,12 @@ def forward_all(cfg: TrainConfig, nets: nn.ModuleDict, batch: dict,
     disparities = nets["disp"](tgt_c)
     pose = nets["pose"](tgt_c, refs_c)
     exp_masks = nets["mask"](tgt_c, refs_c)
-    flow_fwd, flow_bwd, occ = nets["flow"](tgt_c, refs_c[1:3])
+    if cfg.flownet == "Back2Future":
+        flow_fwd, flow_bwd, occ = nets["flow"](tgt_c, refs_c[1:3])
+    else:  # a two-frame net, run once per direction
+        flow_fwd = nets["flow"](tgt_c, refs_c[2])
+        flow_bwd = nets["flow"](tgt_c, refs_c[1])
+        occ = None
     return dict(
         disparities=_nhwc_all(disparities), pose=pose,
         exp_masks=_nhwc_all(exp_masks), flow_fwd=_nhwc_all(flow_fwd),
@@ -209,10 +224,7 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
     The state carries across phases: build one step per --fix-* config,
     all on the same nets and opt_state.
     """
-    if cfg.compute_dtype != "float32" or cfg.loss_dtype != "float32":
-        raise NotImplementedError("only float32 is ported so far")
-    if cfg.flownet != "Back2Future":
-        raise NotImplementedError(f"flownet {cfg.flownet!r} is not ported yet")
+    _check_ported(cfg)
     optimizer = make_optimizer(cfg)
 
     def step(batch: dict) -> dict:

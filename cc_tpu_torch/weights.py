@@ -121,6 +121,21 @@ def _back2future() -> Mapping:
     return w.entries
 
 
+def _flownetc6() -> Mapping:
+    w = _Recorder()
+    for name in ("conv1", "conv2", "conv3", "conv_redir", "conv3_1", "conv4",
+                 "conv4_1", "conv5", "conv5_1", "conv6", "conv6_1"):
+        w.conv(f"{name}.0", f"{name}/Conv_0/Conv_0")
+    for lvl in range(1, 6):
+        w.tconv(f"deconv{lvl}.0", f"deconv{lvl}/ConvTranspose_0")
+    for lvl in range(1, 7):
+        w.conv(f"predict_flow{lvl}", f"predict_flow{lvl}/Conv_0/Conv_0")
+    for a in range(6, 1, -1):
+        w.tconv(f"upsampled_flow{a}_to_{a - 1}",
+                f"up{a}to{a - 1}/ConvTranspose_0")
+    return w.entries
+
+
 _MAPPINGS = {
     "DispNetS": lambda: _dispnet("DispNetS"),
     "DispNetS6": lambda: _dispnet("DispNetS6"),
@@ -129,6 +144,7 @@ _MAPPINGS = {
     "PoseNetB6": _posenet_b6,
     "MaskNet6": _masknet6,
     "Back2Future": _back2future,
+    "FlowNetC6": _flownetc6,
 }
 
 _INVERSE = {

@@ -9,29 +9,35 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 off for matmuls and cuDNN convs.
 2. build: every kernel from the sources in the checkout, timed.
-3. kernels vs plain, each at the shapes its path gives it: max abs error
+3. kernels vs plain, each at the shapes its paths give it: max abs error
    (fails above its tolerance), kernel and plain device times (CUDA-graph
    replays, see time_device), the bound (bytes at the card's memory rate or
    fp32 operations at its peak, whichever is larger) and, where one PyTorch
    call computes the same function, that call's time.
-   - K1, the correlation forward, and K1', its backward: the main path's
-     five shapes, a ragged shape and FlowNetC6's P=21/d=2 shape.
+   - K1, the correlation forward, and K1', its backward: Back2Future's five
+     pyramid shapes (P=9, d=1), FlowNetC6's shape (P=21, d=2) and a ragged
+     shape.
    - K2, the row gather, at experiment E5's [256,832].
 4. gather: E5's path on the port, the row gather of E5's inputs.
 5. slice: forward_eval of the four paper-default nets at 832x256, batch 4,
    fp32, seeded init: shapes, finite values, exactly 10 correlation launches
    per forward, and one sample against the same nets on the CPU.
 6. timing: median of 3 windows of forwards, each ended by a synchronize;
+   the operations of each net's convolutions, counted from the shapes;
    then a torch.profiler breakdown of device time by kernel and of the
-   costliest convolutions by shape.
+   costliest convolutions by shape, and the convolutions' rate.
 7. train: build_train_step at bench.py's operating point (832x256, batch 4,
-   fp32): a few steps with finite metrics; exactly 10 K1 and 10 K1'
-   launches in one step; a fix_flownet step with 10 K1, 0 K1' and F's
+   fp32): 5 warm-up steps with finite losses; exactly 10 K1 and 10
+   K1' launches in one step; a fix_flownet step with 10 K1, 0 K1' and F's
    parameters bit-equal; one 128x128 batch-2 step on the card against the
    same step on the CPU (plain kernels) from the same weights and batch.
-8. train timing: 5 warm-up steps, the median of 3 windows of steps, each
-   ended by a synchronize, then a torch.profiler breakdown per step.
-9. kernels: one entry per kernel, with its launches on its path.
+8. train timing: the median of 3 windows of 5 steps, each ended by a
+   synchronize, then a torch.profiler breakdown per step.
+9. flownetc6_*: phases 5-8 again with FlowNetC6 as F (--flownet
+   FlowNetC6), K1 and K1' at P=21, d=2: 2 K1 launches per forward, 2 K1
+   and 2 K1' per step, 2 K1 and 0 K1' per fix_flownet step.
+10. kernels: one entry per kernel; its launches, times and bound per run
+   of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -60,8 +66,16 @@ B = 4
 # Back2Future's correlation inputs at 832x256: (H, W, C) at levels 2..6
 MAIN_SHAPES = [(64, 208, 32), (32, 104, 64), (16, 52, 96), (8, 26, 128),
                (4, 13, 192)]
-LAUNCHES_PER_SHAPE = 2  # forward and backward stream at each level
-EXTRA_CASES = [((2, 5, 7, 3), 9, 1), ((4, 32, 104, 256), 21, 2)]
+B2F_CASES = [((B, *s), 9, 1) for s in MAIN_SHAPES]
+# FlowNetC6's correlation input at 832x256: conv3's [B,32,104,256]
+C6_CASES = [((B, 32, 104, 256), 21, 2)]
+RAGGED_CASES = [((2, 5, 7, 3), 9, 1)]
+# per run of a path, K1 and K1' launch twice at each of its shapes:
+# Back2Future's forward and backward streams at each level, FlowNetC6's
+# two calls of F (tgt with refs[2], tgt with refs[1])
+LAUNCHES_PER_SHAPE = 2
+FLOWNETS = {"Back2Future": (B2F_CASES, ""),
+            "FlowNetC6": (C6_CASES, "flownetc6_")}
 GATHER_HW = (256, 832)  # scripts/exp_gather.py:43,159-160
 # bench.py:80-112, the JAX package's timed train step
 BENCH = dict(wssim=0.997, smoothness_type="edgeaware",
@@ -154,7 +168,7 @@ def seeded_batch(cfg: TrainConfig, device, seed: int = 0) -> dict:
 def phase_correlation(bw, flops, backward: bool):
     """K1 (backward=False) or K1' against its plain version."""
     gen = torch.Generator(device="cuda").manual_seed(1 if backward else 0)
-    cases = [((B, *s), 9, 1) for s in MAIN_SHAPES] + EXTRA_CASES
+    cases = B2F_CASES + C6_CASES + RAGGED_CASES
     name = "correlation_backward" if backward else "correlation_forward"
     rows = []
     for shape, patch, dil in cases:
@@ -248,7 +262,14 @@ def phase_gather_path():
     return launches
 
 
+def _expect_launches(flownet: str) -> int:
+    return LAUNCHES_PER_SHAPE * len(FLOWNETS[flownet][0])
+
+
 def phase_slice(cfg: TrainConfig):
+    """forward_eval with cfg.flownet as F: launches, shapes, finite values,
+    and one sample against the same nets on the CPU."""
+    prefix = FLOWNETS[cfg.flownet][1]
     nets = make_models(cfg, device="cuda",
                        generator=torch.Generator().manual_seed(0))
     batch = seeded_batch(cfg, "cuda")
@@ -259,15 +280,19 @@ def phase_slice(cfg: TrainConfig):
     out = forward_eval(cfg, nets, batch)
     torch.cuda.synchronize()
     launches = corr.launches
-    if launches != 2 * len(MAIN_SHAPES) or corr.backward_launches:
+    expect = _expect_launches(cfg.flownet)
+    if launches != expect or corr.backward_launches:
         raise AssertionError(f"{launches} correlation launches in one "
-                             f"forward, expected {2 * len(MAIN_SHAPES)}")
+                             f"{cfg.flownet} forward, expected {expect}")
 
     b, h, w, n = cfg.batch_size, cfg.height, cfg.width, cfg.nb_ref_imgs
     expected = {"disp": (b, h, w, 1), "depth": (b, h, w, 1),
                 "pose": (b, n, 6), "exp_mask": (b, h, w, n),
-                "flow_fwd": (b, h, w, 2), "flow_bwd": (b, h, w, 2),
-                "occ": (b, h, w, 2)}
+                "flow_fwd": (b, h, w, 2), "flow_bwd": (b, h, w, 2)}
+    if cfg.flownet == "Back2Future":
+        expected["occ"] = (b, h, w, 2)
+    elif out["occ"] is not None:
+        raise AssertionError(f"{cfg.flownet} gave an occlusion output")
     for k, shape in expected.items():
         if tuple(out[k].shape) != shape:
             raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
@@ -286,8 +311,8 @@ def phase_slice(cfg: TrainConfig):
         errs[k] = {"max_abs_err": err, "tol": tol}
         if not err <= tol:
             raise AssertionError(f"{k}: GPU vs CPU {err} > {tol}")
-    emit({"phase": "slice", "config": "DispResNet6+PoseNetB6+MaskNet6+"
-          "Back2Future nlevels 6", "hw": [h, w], "batch": b,
+    emit({"phase": prefix + "slice", "config": "DispResNet6+PoseNetB6+"
+          f"MaskNet6+{cfg.flownet} nlevels 6", "hw": [h, w], "batch": b,
           "correlation_launches": launches,
           "shapes": {k: list(v) for k, v in expected.items()},
           "gpu_vs_cpu_sample0": errs})
@@ -355,17 +380,52 @@ def timed_windows(run, n: int, windows: int = 3) -> list[float]:
     return out
 
 
+def conv_gflop(cfg, nets, batch) -> dict:
+    """The operations of each net's convolution layers in one forward_eval,
+    GFLOP: 2 x output elements x input channels per group x kernel taps
+    for a convolution, 2 x input elements x output channels per group x
+    taps for a transposed one. Counted from the shapes, on one forward."""
+    counts = dict.fromkeys(NETS, 0)
+
+    def hook(name):
+        def count(m, inputs, out):
+            taps = m.kernel_size[0] * m.kernel_size[1]
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                n = inputs[0].numel() * m.out_channels // m.groups
+            else:
+                n = out.numel() * m.in_channels // m.groups
+            counts[name] += 2 * n * taps
+        return count
+
+    hooks = [m.register_forward_hook(hook(name)) for name in NETS
+             for m in nets[name].modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        forward_eval(cfg, nets, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: v / 1e9 for k, v in counts.items()}
+
+
 def phase_timing(cfg, nets, batch, gpu: str):
+    prefix = FLOWNETS[cfg.flownet][1]
     for _ in range(3):
         forward_eval(cfg, nets, batch)
     torch.cuda.synchronize()
     windows = timed_windows(lambda: forward_eval(cfg, nets, batch), 10)
     ms = statistics.median(windows)
-    emit({"phase": "timing", "what": "forward_eval 832x256 b4 fp32",
+    gflop = conv_gflop(cfg, nets, batch)
+    emit({"phase": prefix + "timing",
+          "what": f"forward_eval {cfg.flownet} 832x256 b4 fp32",
           "ms_per_forward": ms, "window_ms": windows,
-          "frames_per_s": cfg.batch_size * 1e3 / ms, "gpu": gpu})
-    emit(profile_breakdown(lambda: forward_eval(cfg, nets, batch), 3, ms,
-                           "forward_eval, per forward"))
+          "frames_per_s": cfg.batch_size * 1e3 / ms, "gpu": gpu,
+          "conv_gflop_per_forward": gflop})
+    prof = profile_breakdown(lambda: forward_eval(cfg, nets, batch), 3, ms,
+                             f"forward_eval {cfg.flownet}, per forward")
+    prof["convolution_tflop_per_s"] = (sum(gflop.values())
+                                       / prof["convolution_ms"])
+    emit(prof)
 
 
 def _count_step(step, batch) -> tuple[dict, int, int]:
@@ -383,33 +443,40 @@ def _finite(metrics: dict) -> dict:
     return values
 
 
-def phase_train(gpu: str):
-    """The train path at bench.py's operating point, its launches, its
-    frozen phase, and its timing and profile."""
-    cfg = TrainConfig(height=256, width=832, batch_size=B, **BENCH)
+def phase_train(gpu: str, flownet: str):
+    """The train path at bench.py's operating point with `flownet` as F,
+    its launches, its frozen phase, and its timing and profile. The
+    warm-up losses are reported, not held to fall: with FlowNetC6 they
+    rise after the first step, in cc_tpu as in the port (see
+    tests/test_torch_train_step.py, run as a script)."""
+    prefix = FLOWNETS[flownet][1]
+    cfg = TrainConfig(height=256, width=832, batch_size=B, flownet=flownet,
+                      **BENCH)
     nets = make_models(cfg, device="cuda",
                        generator=torch.Generator().manual_seed(0))
     opt_state = make_optimizer(cfg).init(nets)
     step = build_train_step(cfg, nets, opt_state)
     batch = seeded_batch(cfg, "cuda")
 
+    torch.cuda.reset_peak_memory_stats()
     warm = [_finite(step(batch)) for _ in range(5)]
     torch.cuda.synchronize()
     metrics, k1, k1b = _count_step(step, batch)
     values = _finite(metrics)
-    expect = 2 * len(MAIN_SHAPES)
+    expect = _expect_launches(flownet)
     if (k1, k1b) != (expect, expect):
-        raise AssertionError(f"train step: {k1} K1 and {k1b} K1' launches, "
-                             f"expected {expect} of each")
+        raise AssertionError(f"{flownet} train step: {k1} K1 and {k1b} K1' "
+                             f"launches, expected {expect} of each")
 
     windows = timed_windows(lambda: step(batch), 5)
     ms = statistics.median(windows)
-    emit({"phase": "train_timing", "what": "train step 832x256 b4 fp32",
+    emit({"phase": prefix + "train_timing",
+          "what": f"train step {flownet} 832x256 b4 fp32",
           "ms_per_step": ms, "window_ms": windows,
           "frames_per_s": cfg.batch_size * 1e3 / ms, "gpu": gpu,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     emit(profile_breakdown(lambda: step(batch), 3, ms,
-                           "train step, per step"))
+                           f"train step {flownet}, per step"))
 
     # a competition phase: F frozen, on the same nets and optimizer state
     frozen = build_train_step(cfg.replace(fix_flownet=True), nets, opt_state)
@@ -419,10 +486,12 @@ def phase_train(gpu: str):
     flow_equal = all(torch.equal(a, p) for a, p in
                      zip(flow_before, nets["flow"].parameters()))
     if (f_k1, f_k1b) != (expect, 0) or not flow_equal:
-        raise AssertionError(f"fix_flownet step: {f_k1} K1, {f_k1b} K1' "
-                             f"launches, F unchanged: {flow_equal}")
-    emit({"phase": "train", "config": "bench.py:80-112 (wssim 0.997, "
-          "edge-aware, w1..w5 1/0.1/0.1/0.5/0.3, lr 1e-4)",
+        raise AssertionError(f"{flownet} fix_flownet step: {f_k1} K1, "
+                             f"{f_k1b} K1' launches, F unchanged: "
+                             f"{flow_equal}")
+    emit({"phase": prefix + "train", "config": "bench.py:80-112 (wssim "
+          "0.997, edge-aware, w1..w5 1/0.1/0.1/0.5/0.3, lr 1e-4), "
+          f"DispResNet6+PoseNetB6+MaskNet6+{flownet}",
           "hw": [cfg.height, cfg.width], "batch": cfg.batch_size,
           "warmup_losses": [m["loss"] for m in warm],
           "step_metrics": values, "k1_launches": k1, "k1b_launches": k1b,
@@ -433,12 +502,13 @@ def phase_train(gpu: str):
     return k1, k1b
 
 
-def phase_train_vs_cpu():
-    """One 128x128 batch-2 step on the card and on the CPU (plain kernels)
-    from the same weights and batch: the metrics, the first moments (which
-    are (1-b1)*grad after one step from zero), the updated parameters and
-    the BatchNorm running stats."""
-    cfg = TrainConfig(height=128, width=128, batch_size=2, **BENCH)
+def phase_train_vs_cpu(flownet: str):
+    """One 128x128 batch-2 step with `flownet` as F on the card and on the
+    CPU (plain kernels) from the same weights and batch: the metrics, the
+    first moments (which are (1-b1)*grad after one step from zero), the
+    updated parameters and the BatchNorm running stats."""
+    cfg = TrainConfig(height=128, width=128, batch_size=2, flownet=flownet,
+                      **BENCH)
     nets = make_models(cfg, device="cuda",
                        generator=torch.Generator().manual_seed(1))
     nets_cpu = copy.deepcopy(nets).cpu()
@@ -481,26 +551,40 @@ def phase_train_vs_cpu():
                 check("stats", f"{name}.{k}",
                       float((sd_gpu[k].cpu() - v).abs().max()),
                       TRAIN_STATS_RTOL * max(1.0, float(v.abs().max())))
-    emit({"phase": "train_vs_cpu", "hw": [128, 128], "batch": 2,
+    emit({"phase": FLOWNETS[flownet][1] + "train_vs_cpu", "hw": [128, 128],
+          "batch": 2, "flownet": flownet,
           "metrics_gpu": m_gpu, "metrics_cpu": m_cpu, **report})
     if failures:
-        raise AssertionError("train step, card vs CPU: " + "; ".join(failures))
+        raise AssertionError(f"{flownet} train step, card vs CPU: "
+                             + "; ".join(failures))
 
 
-def kernel_entry(name, source, replaces, rows, main_rows, per_path,
-                 launches, library_ms=None):
-    """One `kernels` entry. Times and bounds are per run of the kernel's
-    path: `per_path` launches at each of `main_rows`' shapes; the error is
-    the largest over all `rows`."""
-    total = lambda key, by=None: per_path * sum(
-        r[key] for r in main_rows if by in (None, r["bound_by"]))
-    bound_by = max(("bytes", "operations"), key=lambda by: total("bound_us", by))
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+def path_entry(path: str, rows, launches: int,
+               per_shape: int = LAUNCHES_PER_SHAPE) -> dict:
+    """A kernel's work on one run of a path: `per_shape` launches at each
+    of `rows`' shapes, `launches` counted on the path's run."""
+    total = lambda key, by=None: per_shape * sum(
+        r[key] for r in rows if by in (None, r["bound_by"]))
+    return {"path": path, "launches": launches,
+            "shapes": [[*r["shape"], r["patch"], r["dilation"]] if "patch"
+                       in r else r["shape"] for r in rows],
             "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_us") / 1e3, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_ms": total("bound_us") / 1e3,
+            "bound_by": max(("bytes", "operations"),
+                            key=lambda by: total("bound_us", by))}
+
+
+def kernel_entry(name, source, replaces, rows, paths, library_ms=None):
+    """One `kernels` entry: the error is the largest over all `rows`; the
+    launches, times and bound at the top level are those of the first of
+    `paths`, the kernel's main path."""
+    main = paths[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": library_ms, "paths": paths}
 
 
 def main() -> int:
@@ -537,28 +621,47 @@ def main() -> int:
     gather_row = phase_row_gather(bw, flops)
     gather_launches = phase_gather_path()
 
-    cfg = TrainConfig()
-    nets, batch, _ = phase_slice(cfg)
-    phase_timing(cfg, nets, batch, gpu)
-    del nets, batch
-    torch.cuda.empty_cache()
+    launches = {}  # (flownet, "eval" | "step") -> (K1, K1') on that run
+    for flownet in FLOWNETS:
+        cfg = TrainConfig(flownet=flownet)
+        nets, batch, k1_eval = phase_slice(cfg)
+        launches[flownet, "eval"] = (k1_eval, 0)
+        phase_timing(cfg, nets, batch, gpu)
+        del nets, batch
+        torch.cuda.empty_cache()
+        launches[flownet, "step"] = phase_train(gpu, flownet)
+        torch.cuda.empty_cache()
+        phase_train_vs_cpu(flownet)
 
-    k1, k1b = phase_train(gpu)
-    phase_train_vs_cpu()
-
-    main = len(MAIN_SHAPES)
+    n_b2f, n_c6 = len(B2F_CASES), len(C6_CASES)
+    corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
+    corr_paths = {}
+    for kind, k in (("fwd", 0), ("bwd", 1)):
+        b2f, c6 = corr_rows[kind][:n_b2f], corr_rows[kind][n_b2f:n_b2f + n_c6]
+        corr_paths[kind] = [
+            path_entry("Back2Future train step", b2f,
+                       launches["Back2Future", "step"][k]),
+            path_entry("FlowNetC6 train step", c6,
+                       launches["FlowNetC6", "step"][k])]
+        if kind == "fwd":
+            corr_paths[kind] += [
+                path_entry("Back2Future eval forward", b2f,
+                           launches["Back2Future", "eval"][0]),
+                path_entry("FlowNetC6 eval forward", c6,
+                           launches["FlowNetC6", "eval"][0])]
     emit({"kernels": [
         kernel_entry("correlation_forward",
                      "cc_tpu_torch/ops/csrc/correlation.cu",
                      "cc_tpu/ops/correlation_pallas.py:77", fwd_rows,
-                     fwd_rows[:main], LAUNCHES_PER_SHAPE, k1),
+                     corr_paths["fwd"]),
         kernel_entry("correlation_backward",
                      "cc_tpu_torch/ops/csrc/correlation.cu",
                      "cc_tpu/ops/correlation_pallas.py:112", bwd_rows,
-                     bwd_rows[:main], LAUNCHES_PER_SHAPE, k1b),
+                     corr_paths["bwd"]),
         kernel_entry("row_gather", "cc_tpu_torch/ops/csrc/row_gather.cu",
-                     "scripts/exp_gather.py:173", [gather_row], [gather_row],
-                     1, gather_launches,
+                     "scripts/exp_gather.py:173", [gather_row],
+                     [path_entry("E5 row gather", [gather_row],
+                                 gather_launches, per_shape=1)],
                      library_ms=gather_row["library_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 the correlation forward (K1) and backward (K1'), the autograd Function that
-joins them, and the row gather (K2).
+joins them, and the row gather (K2); and FlowNetC6 through them: its
+gradients on the card against the CPU's, and its train step's launches.
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports no JAX, so on a machine without JAX it runs without the
@@ -12,14 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from cc_tpu_torch import models
 from cc_tpu_torch.ops import correlation as tc
 from cc_tpu_torch.ops import row_gather as rg
+from cc_tpu_torch.train import (
+    TrainConfig, build_train_step, make_models, make_optimizer,
+)
 # Imported through tests/ itself, which pytest puts on the path: where an
 # installed package is named `tests`, that package hides tests.torch_port_util.
 from torch_port_util import assert_close
 
 # fp32 sums of C products taken in another order than the plain version's
 ATOL = 1e-5
+# FlowNetC6 on the card against the CPU: cuDNN and oneDNN convs sum in
+# other orders; relative to each gradient's largest entry
+NET_RTOL = 1e-3
 CORR_CASES = [
     ((2, 5, 7, 3), 9, 1),          # ragged: W and C below one tile
     ((2, 16, 80, 32), 9, 1),       # several w-tiles, one partial
@@ -129,3 +137,62 @@ def test_row_gather_kernel_rejects_what_it_does_not_take(cuda):
         rg.row_gather_cuda(img, idx[:, :5])
     with pytest.raises(ValueError):
         rg.row_gather_cuda(img.t(), idx.t())
+
+
+def test_flownetc6_gradients_match_cpu(cuda):
+    """FlowNetC6 in training mode at 128x128, the six flows weighted by a
+    fixed random cotangent: the gradients of both frames (the second frame
+    reaches the flows only through K1 and K1', whose output gradient is a
+    channel slice of a concatenation, permuted to NHWC) and of the stem,
+    on the card against the CPU's plain correlation."""
+    torch.backends.cudnn.allow_tf32 = False
+    net = models.build("FlowNetC6").train()
+    x1, x2 = _randn((1, 3, 128, 128), "cpu", 8), _randn((1, 3, 128, 128),
+                                                         "cpu", 9)
+    cots = [_randn((1, 2, 128 >> k, 128 >> k), "cpu", 10 + k)
+            for k in range(6)]
+    grads = []
+    for dev in ("cpu", cuda):
+        n = net.to(dev)
+        n.zero_grad()
+        a = x1.to(dev).detach().requires_grad_()
+        b = x2.to(dev).detach().requires_grad_()
+        tc.launches = tc.backward_launches = 0
+        sum((c.to(dev) * f).sum() for c, f in zip(cots, n(a, b))).backward()
+        if dev == cuda:
+            assert (tc.launches, tc.backward_launches) == (1, 1)
+        grads.append({"x1": a.grad.cpu(), "x2": b.grad.cpu(),
+                      "conv3": n.conv3[0].weight.grad.cpu(),
+                      "conv3_1": n.conv3_1[0].weight.grad.cpu()})
+    for k, e in grads[0].items():
+        assert_close(grads[1][k], e, NET_RTOL * float(e.abs().max()), k)
+
+
+def test_flownetc6_train_step_launches(cuda):
+    """FlowNetC6's train step makes 2 K1 and 2 K1' launches (F runs once
+    per direction); a fix_flownet step on the same nets and state makes 2
+    K1 and 0 K1', and leaves F bit-equal."""
+    cfg = TrainConfig(height=128, width=128, batch_size=2,
+                      flownet="FlowNetC6")
+    nets = make_models(cfg, device=cuda)
+    opt_state = make_optimizer(cfg).init(nets)
+    r = np.random.RandomState(0)
+    k = np.array([[128, 0, 64], [0, 128, 64], [0, 0, 1]], np.float32)
+    batch = {"tgt": r.rand(2, 128, 128, 3).astype(np.float32) * 2 - 1,
+             "refs": r.rand(2, 4, 128, 128, 3).astype(np.float32) * 2 - 1,
+             "intrinsics": np.stack([k, k]),
+             "intrinsics_inv": np.stack([np.linalg.inv(k)] * 2)}
+    counts = []
+    for fixed in (False, True):
+        step = build_train_step(cfg.replace(fix_flownet=fixed), nets,
+                                opt_state)
+        before = [p.detach().clone() for p in nets["flow"].parameters()]
+        tc.launches = tc.backward_launches = 0
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        counts.append((tc.launches, tc.backward_launches))
+        assert all(torch.isfinite(v) for v in metrics.values())
+        same = all(torch.equal(a, p) for a, p in
+                   zip(before, nets["flow"].parameters()))
+        assert same == fixed
+    assert counts == [(2, 2), (2, 0)]

@@ -1,5 +1,6 @@
 """cc_tpu_torch nets vs cc_tpu's, in eval and train mode, on weights carried
-across.
+across; and FlowNetC6's gradients against jax.grad, which carry the
+correlation's backward at P=21, d=2 through the net.
 
 Each net's variables have the structure of its flax init (at the size of
 tests/test_models.py) and values drawn with numpy, BatchNorm running stats
@@ -10,6 +11,7 @@ export_state_dict exactly.
 import numpy as np
 import pytest
 import jax
+import jax.numpy as jnp
 import torch
 
 from cc_tpu import models as jmodels
@@ -23,13 +25,21 @@ from tests.torch_port_util import (
 torch.set_num_threads(2)
 
 B, H, W = 1, 128, 128
-ARCHS = ["DispResNet6", "PoseNetB6", "MaskNet6", "Back2Future"]
+ARCHS = ["DispResNet6", "PoseNetB6", "MaskNet6", "Back2Future", "FlowNetC6"]
 # the rest of the DispNet family, off the main path
 VARIANTS = ["DispNetS", "DispNetS6", "DispResNetS6"]
-NREF = {"PoseNetB6": 4, "MaskNet6": 4, "Back2Future": 2}
+NREF = {"PoseNetB6": 4, "MaskNet6": 4, "Back2Future": 2, "FlowNetC6": 1}
 # fp32 convs summed in another order by XLA and oneDNN, through up to ~40
 # layers; relative to each output's largest magnitude
 RTOL = 1e-4
+# FlowNetC6's gradients, fp32 backward sums in another order through ~20
+# layers and the 441-tap correlation; relative to each tensor's largest
+# entry (measured: 1.5e-5)
+GRAD_RTOL = 1e-4
+# cc_tpu's FlowNetC6 tree. The reference file's docstring says 39,175,298
+# (tests/test_models.py:166): it predates the sixth level, deconv1 +
+# predict_flow1 + upsampled_flow2_to_1 = 101,192 parameters.
+FLOWNETC6_PARAMS = 39_276_490
 
 
 def _inputs(arch, b=B):
@@ -38,6 +48,14 @@ def _inputs(arch, b=B):
     refs = [(r.rand(b, H, W, 3) * 2 - 1).astype(np.float32)
             for _ in range(NREF.get(arch, 0))]
     return tgt, refs
+
+
+def _args(arch, tgt, refs):
+    """The net's positional inputs: FlowNetC6 takes two frames, the others
+    the target and (if any) the list of refs."""
+    if arch == "FlowNetC6":
+        return tgt, refs[0]
+    return (tgt,) if not refs else (tgt, refs)
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +67,7 @@ def flax_vars():
     out = {}
     for arch in ARCHS + VARIANTS:
         net = jmodels.build(arch)
-        tgt, refs = _inputs(arch)
-        args = (tgt,) if not refs else (tgt, refs)
+        args = _args(arch, *_inputs(arch))
         v = jax.eval_shape(lambda k: net.init(k, *args, training=True),
                            jax.random.PRNGKey(0))
         out[arch] = (net, draw_flax_variables(v["params"], r),
@@ -97,16 +114,14 @@ def test_forward_matches(flax_vars, arch, training):
     variables = {"params": params}
     if stats:
         variables["batch_stats"] = stats
-    tgt, refs = _inputs(arch, 2 if training else B)
-    args = (tgt,) if not refs else (tgt, refs)
+    args = _args(arch, *_inputs(arch, 2 if training else B))
     ref = jax.jit(lambda v: net_j.apply(v, *args, training=training,
                                         mutable=["batch_stats"])[0])(variables)
 
     net_t = load_flax_weights(tmodels.build(arch), arch, params, stats)
     net_t.train(training)
-    t_args = [nhwc_to_nchw(tgt)]
-    if refs:
-        t_args.append([nhwc_to_nchw(x) for x in refs])
+    t_args = [nhwc_to_nchw(a) if isinstance(a, np.ndarray)
+              else [nhwc_to_nchw(x) for x in a] for a in args]
     with torch.inference_mode():
         out = net_t(*t_args)
 
@@ -117,3 +132,44 @@ def test_forward_matches(flax_vars, arch, training):
         o = o.numpy() if o.dim() == 3 else nchw_to_nhwc(o)  # pose is [B,n,6]
         tol = RTOL * max(1.0, float(np.max(np.abs(e))))
         assert_close(o, e, tol, f"{arch} output {i}")
+
+
+def test_flownetc6_parameter_count(flax_vars):
+    _, params, _ = flax_vars["FlowNetC6"]
+    flax_count = sum(a.size for a in jax.tree_util.tree_leaves(params))
+    net = tmodels.build("FlowNetC6")
+    assert flax_count == FLOWNETC6_PARAMS
+    assert sum(p.numel() for p in net.parameters()) == FLOWNETC6_PARAMS
+
+
+def test_flownetc6_gradients_match_jax_grad(flax_vars):
+    """The gradient of one scalar, a fixed random weighting of the six
+    training-mode flows, over every parameter and both input frames."""
+    net_j, params, _ = flax_vars["FlowNetC6"]
+    x1, (x2,) = _inputs("FlowNetC6")
+    r = np.random.RandomState(2)
+    weights = [r.randn(B, H >> k, W >> k, 2).astype(np.float32)
+               for k in range(6)]
+
+    def scalar(p, a, b):
+        flows = net_j.apply({"params": p}, a, b, training=True)
+        return sum(jnp.sum(w * f) for w, f in zip(weights, flows))
+
+    g_params, g_x1, g_x2 = jax.jit(jax.grad(scalar, argnums=(0, 1, 2)))(
+        params, x1, x2)
+    ref = state_dict_from_flax("FlowNetC6", jax.device_get(g_params))
+
+    net_t = load_flax_weights(tmodels.build("FlowNetC6"), "FlowNetC6",
+                              params).train()
+    t1, t2 = nhwc_to_nchw(x1).requires_grad_(), nhwc_to_nchw(x2).requires_grad_()
+    flows = net_t(t1, t2)
+    sum((nhwc_to_nchw(w) * f).sum()
+        for w, f in zip(weights, flows)).backward()
+
+    mine = {k: p.grad for k, p in net_t.named_parameters()}
+    mine.update(x1=nchw_to_nhwc(t1.grad), x2=nchw_to_nhwc(t2.grad))
+    ref.update(x1=np.asarray(g_x1), x2=np.asarray(g_x2))
+    assert mine.keys() == ref.keys()
+    for k, e in ref.items():
+        assert float(np.max(np.abs(e))) > 0, k
+        assert_close(mine[k], e, GRAD_RTOL * float(np.max(np.abs(e))), k)

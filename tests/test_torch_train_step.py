@@ -2,7 +2,15 @@
 same weights and batch: the six metrics, the gradients (as Adam's first
 moments after one step from zero moments, which are exactly (1-b1)*grad),
 the updated parameters and the updated BatchNorm running stats; a
-frozen-phase step; and the BatchNorm running-variance rule.
+frozen-phase step; and the BatchNorm running-variance rule. With FlowNetC6
+as F: the four-net forward against cc_tpu's forward_all, and a step and a
+fix_flownet step on the port alone.
+
+Run as a script, the file compares several FlowNetC6 steps of the port and
+of cc_tpu from cc_tpu's init, a second JAX train-step compile that tier-1
+does not pay for (a few minutes on the CPU):
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_train_step [steps]
 
 The JAX step is compiled once, with test_train_step's config, batch and
 donate=False: its program is the same as test_train_step's, so the
@@ -18,12 +26,15 @@ import optax
 import torch
 
 from cc_tpu.train import build_train_step as jax_build_train_step
+from cc_tpu.train.step import forward_all as jax_forward_all
 from cc_tpu.train import init_state, make_models as jax_make_models
 from cc_tpu.train.state import TrainState, make_optimizer as jax_make_optimizer
 from cc_tpu_torch.models.layers import BatchNorm2d
 from cc_tpu_torch.train import (
-    METRICS, NETS, TrainConfig, build_train_step, make_models, make_optimizer,
+    METRICS, NETS, TrainConfig, build_train_step, forward_eval, make_models,
+    make_optimizer,
 )
+from cc_tpu_torch.train.step import forward_all
 from cc_tpu_torch.weights import load_flax_weights, state_dict_from_flax
 from tests.test_train_step import synth_batch, tiny_config
 from tests.torch_port_util import assert_close, draw_flax_variables
@@ -47,6 +58,9 @@ PARAM_MOVED_SHARE = 0.01
 # BatchNorm running stats after one step: a batch mean and variance of
 # activations that agree to ~1e-5; relative to each tensor's magnitude.
 STATS_RTOL = 1e-4
+# The four nets' training-mode outputs: fp32 convs summed in another order;
+# relative to each output's largest magnitude
+FORWARD_RTOL = 1e-4
 
 
 def _archs(cfg):
@@ -219,3 +233,125 @@ def test_batchnorm_running_stats_follow_flax():
     n = x.shape[0] * x.shape[1] * x.shape[2]
     unbiased = 0.9 * var + 0.1 * x.reshape(-1, 4).var(0) * n / (n - 1)
     assert np.abs(mine.running_var.detach().numpy() - unbiased).max() > 1e-3
+
+
+def test_forward_all_flownetc6_matches():
+    """The four nets with FlowNetC6 as F, training mode, against cc_tpu's
+    forward_all (one jit of the forward, no train-step compile): F runs
+    once per direction, flow_fwd on (tgt, refs[2]) and flow_bwd on
+    (tgt, refs[1]), and gives no occlusion."""
+    jcfg = tiny_config(flownet="FlowNetC6")
+    batch = {k: np.array(v) for k, v in synth_batch(jcfg).items()}
+    shapes = jax.eval_shape(lambda k: init_state(jcfg, k),
+                            jax.random.PRNGKey(0))
+    r = np.random.RandomState(4)
+    params = draw_flax_variables(shapes.params, r)
+    stats = draw_flax_variables(shapes.batch_stats, r)
+    mods = jax_make_models(jcfg)
+    ref = jax.device_get(jax.jit(lambda p, s, b: jax_forward_all(
+        jcfg, mods, p, s, b, training=True)[0])(params, stats, batch))
+    assert ref["occ"] is None
+
+    cfg, nets = _port(jcfg, params, stats)
+    with torch.no_grad():
+        out = forward_all(cfg, nets, batch, training=True)
+    assert out["occ"] is None
+    for key in ("disparities", "pose", "exp_masks", "flow_fwd", "flow_bwd"):
+        mine, exp = out[key], ref[key]
+        if key == "pose":
+            mine, exp = [mine], [exp]
+        assert len(mine) == len(exp) == (1 if key == "pose" else 6), key
+        for i, (o, e) in enumerate(zip(mine, exp)):
+            e = np.asarray(e)
+            tol = FORWARD_RTOL * max(1.0, float(np.max(np.abs(e))))
+            assert_close(o, e, tol, f"{key}[{i}]")
+    # F's flows depend on the second frame only through the correlation,
+    # weakly at these random weights (the two directions differ by ~1e-4
+    # of the flows' magnitude), so the tolerance above cannot tell them
+    # apart: the port's finest flows must lie 10x closer to cc_tpu's of
+    # the same direction than the two directions lie apart
+    gap = float(np.max(np.abs(ref["flow_fwd"][0] - ref["flow_bwd"][0])))
+    assert gap > 0
+    for key in ("flow_fwd", "flow_bwd"):
+        assert_close(out[key][0], ref[key][0], 0.1 * gap, f"{key} direction")
+
+
+@pytest.fixture(scope="module")
+def flownetc6_steps():
+    """A step and then a fix_flownet step, both with FlowNetC6 as F, on one
+    set of nets and optimizer state (seeded init), on the CPU."""
+    cfg = TrainConfig(**{f: getattr(tiny_config(), f)
+                         for f in TrainConfig.__dataclass_fields__})
+    cfg = cfg.replace(flownet="FlowNetC6")
+    nets = make_models(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(5))
+    batch = {k: np.array(v) for k, v in synth_batch(cfg).items()}
+    opt_state = make_optimizer(cfg).init(nets)
+    snaps = [[p.detach().clone() for p in nets["flow"].parameters()]]
+    metrics = []
+    for fixed in (False, True):
+        step = build_train_step(cfg.replace(fix_flownet=fixed), nets,
+                                opt_state)
+        metrics.append({k: float(v) for k, v in step(batch).items()})
+        snaps.append([p.detach().clone() for p in nets["flow"].parameters()])
+    return metrics, snaps, opt_state
+
+
+def test_flownetc6_train_step_moves_f(flownetc6_steps):
+    metrics, (before, after, _), _ = flownetc6_steps
+    metrics = metrics[0]
+    assert set(metrics) == set(METRICS)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert metrics["photo_flow_loss"] > 0 and metrics["consensus_loss"] > 0
+    moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+    assert all(moved), sum(moved)
+
+
+def test_flownetc6_fix_flownet_step_keeps_f(flownetc6_steps):
+    metrics, (_, before, after), opt_state = flownetc6_steps
+    assert all(np.isfinite(v) for v in metrics[1].values()), metrics[1]
+    assert opt_state.count == 2
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+@pytest.mark.parametrize("change", [
+    dict(compute_dtype="bfloat16"), dict(loss_dtype="bfloat16"),
+    dict(flownet="PWCNet")])
+def test_unported_configs_raise(change):
+    cfg = TrainConfig(height=128, width=128, batch_size=1,
+                      flownet="FlowNetC6").replace(**change)
+    with pytest.raises(NotImplementedError):
+        build_train_step(cfg, None, None)
+    with pytest.raises(NotImplementedError):
+        forward_eval(cfg, None, {})
+
+
+def compare_flownetc6_losses(steps: int = 8) -> None:
+    """The loss of `steps` train steps on one batch, FlowNetC6 as F, at
+    128x128 batch 2 with bench.py's loss weights, from cc_tpu's init
+    (init_state, seed 0): cc_tpu's build_train_step and the port's."""
+    bench = dict(wssim=0.997, smoothness_type="edgeaware",
+                 cam_photo_loss_weight=1.0, mask_loss_weight=0.1,
+                 smooth_loss_weight=0.1, flow_photo_loss_weight=0.5,
+                 consensus_loss_weight=0.3, lr=1e-4)
+    jcfg = tiny_config(flownet="FlowNetC6", **bench)
+    state = init_state(jcfg, jax.random.PRNGKey(0))
+    batch = {k: np.array(v) for k, v in synth_batch(jcfg).items()}
+    cfg, nets = _port(jcfg, jax.device_get(state.params),
+                      jax.device_get(state.batch_stats))
+    step = build_train_step(cfg, nets, make_optimizer(cfg).init(nets))
+    port = [float(step(batch)["loss"]) for _ in range(steps)]
+    jstep = jax_build_train_step(jcfg, jax_make_models(jcfg), donate=False)
+    ref = []
+    for _ in range(steps):
+        state, metrics = jstep(state, batch)
+        ref.append(float(metrics["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(port, ref))
+    print(f"port:    {port}\ncc_tpu:  {ref}\nlargest relative difference {rel:.3g}")
+
+
+if __name__ == "__main__":
+    import sys
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    compare_flownetc6_losses(*(int(a) for a in sys.argv[1:]))
