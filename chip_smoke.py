@@ -13,7 +13,8 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    (fails above its tolerance), kernel and plain device times (CUDA-graph
    replays, see time_device), the bound (bytes at the card's memory rate or
    fp32 operations at its peak, whichever is larger) and, where one PyTorch
-   call computes the same function, that call's time.
+   call computes the same function, that call's time; for K1', its tiles and
+   the bytes it stages from L2 into shared memory, counted from them.
    - K1, the correlation forward, and K1', its backward: Back2Future's five
      pyramid shapes (P=9, d=1), FlowNetC6's shape (P=21, d=2) and a ragged
      shape.
@@ -43,6 +44,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import statistics
 import subprocess
@@ -89,6 +91,10 @@ TRAIN_METRIC_RTOL = 1e-3  # relative to each metric
 # gradient (measured 0.92e-3, F's decoder_bwd3)
 TRAIN_MU_RTOL = 2e-3
 TRAIN_STATS_RTOL = 1e-4   # BatchNorm running stats, relative to magnitude
+# Updated parameters: besides the 2*lr bound below, the share of entries
+# that may differ by more than 1e-6 (measured: 0.05%); the bound of
+# tests/test_torch_train_step.py, the CPU step against cc_tpu's
+PARAM_MOVED_SHARE = 0.01
 # (memory bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets
 PEAKS = [("H100 PCIe", (2.0e12, 51e12)), ("H100 NVL", (3.9e12, 60e12)),
          ("H100", (3.35e12, 67e12)), ("H200", (4.8e12, 67e12))]
@@ -122,6 +128,32 @@ def corr_work(shape, patch, backward: bool):
     if backward:
         return 4 * pix * (4 * c + pp), 4 * pix * pp * c
     return 4 * pix * (2 * c + pp), 2 * pix * pp * c
+
+
+def bwd_tiles(shape, dil: int) -> tuple[int, int]:
+    """K1''s tiles as correlation.cu picks them for a shape: (pixels of one
+    residue class a block, channels a block)."""
+    fn = _build.load("correlation").cc_correlation_backward_tiles
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    tw, cb = ctypes.c_int(), ctypes.c_int()
+    fn(*shape, dil, ctypes.byref(tw), ctypes.byref(cb))
+    return tw.value, cb.value
+
+
+def bwd_staged_bytes(shape, patch: int, dil: int) -> int:
+    """Bytes one K1' launch copies from L2 into shared memory: for each
+    block and each displacement row whose value row lies in the image,
+    tw + P - 1 columns of cb values, and P entries of g at tw pixels (df1)
+    or tw + P - 1 (df2)."""
+    b, h, w, c = shape
+    tw, cb = bwd_tiles(shape, dil)
+    r, span = patch // 2, tw + patch - 1
+    rows = sum(min(patch - 1, r + (h - 1 - y) // dil)
+               - max(0, r - y // dil) + 1 for y in range(h))
+    tiles = sum(-(-((w - res + dil - 1) // dil) // tw) for res in range(dil))
+    per_row = 4 * (2 * span * cb + (tw + span) * patch)  # df1's and df2's
+    return b * -(-c // cb) * tiles * rows * per_row
 
 
 def time_device(fn, n: int = 20, reps: int = 5) -> float:
@@ -188,6 +220,10 @@ def phase_correlation(bw, flops, backward: bool):
         torch.cuda.synchronize()
         if backward:
             err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            # gathers only, no atomics: the same bits on every launch
+            if not all(map(torch.equal, kernel(), out)):
+                raise AssertionError(f"{name} differs between two launches "
+                                     f"at {shape} P={patch} d={dil}")
         else:
             err = float((out - ref).abs().max())
         ms = time_device(kernel)
@@ -197,6 +233,9 @@ def phase_correlation(bw, flops, backward: bool):
                "patch": patch, "dilation": dil, "max_abs_err": err,
                "atol": ATOL, "ms": ms, "plain_ms": plain_ms,
                "bound_us": bnd * 1e3, "bound_by": by}
+        if backward:
+            row["tiles"] = bwd_tiles(shape, dil)
+            row["staged_mb"] = bwd_staged_bytes(shape, patch, dil) / 1e6
         emit(row)
         if not err <= ATOL:
             raise AssertionError(f"{name} disagrees at {shape} P={patch} "
@@ -506,7 +545,8 @@ def phase_train_vs_cpu(flownet: str):
     """One 128x128 batch-2 step with `flownet` as F on the card and on the
     CPU (plain kernels) from the same weights and batch: the metrics, the
     first moments (which are (1-b1)*grad after one step from zero), the
-    updated parameters and the BatchNorm running stats."""
+    updated parameters (each within 2*lr, and the share of entries more
+    than 1e-6 apart) and the BatchNorm running stats."""
     cfg = TrainConfig(height=128, width=128, batch_size=2, flownet=flownet,
                       **BENCH)
     nets = make_models(cfg, device="cuda",
@@ -522,6 +562,7 @@ def phase_train_vs_cpu(flownet: str):
     (m_gpu, st_gpu, _), (m_cpu, st_cpu, _) = results
 
     report, failures = {"metrics": {}, "mu": {}, "params": {}, "stats": {}}, []
+    moved = total = 0  # parameter entries more than 1e-6 apart, of all
 
     def check(group, key, err, tol, **more):
         report[group][key] = {"max_abs_err": err, "tol": tol, **more}
@@ -540,17 +581,27 @@ def phase_train_vs_cpu(flownet: str):
         check("mu", name, errs[worst][0], TRAIN_MU_RTOL * ref_max,
               worst=worst, worst_tensor_max=errs[worst][1])
         sd_gpu, sd_cpu = nets[name].state_dict(), nets_cpu[name].state_dict()
-        perr = max(float((sd_gpu[k].cpu() - v).abs().max())
-                   for k, v in sd_cpu.items() if v.is_floating_point()
-                   and not k.endswith(("running_mean", "running_var")))
+        diffs = [(sd_gpu[k].cpu() - v).abs() for k, v in sd_cpu.items()
+                 if v.is_floating_point()
+                 and not k.endswith(("running_mean", "running_var"))]
+        perr = max(float(d.max()) for d in diffs)
+        moved += sum(int((d > 1e-6).sum()) for d in diffs)
+        total += sum(d.numel() for d in diffs)
         # Adam's first step is about lr*sign(grad): a near-zero gradient of
-        # the other sign moves a parameter up to 2*lr apart
+        # the other sign moves a parameter up to 2*lr apart, so this bound
+        # holds whatever the gradients are; the share bound below does not
         check("params", name, perr, 2 * cfg.lr + 1e-6)
         for k, v in sd_cpu.items():
             if k.endswith(("running_mean", "running_var")):
                 check("stats", f"{name}.{k}",
                       float((sd_gpu[k].cpu() - v).abs().max()),
                       TRAIN_STATS_RTOL * max(1.0, float(v.abs().max())))
+    report["params_moved"] = {"share": moved / total, "moved": moved,
+                              "entries": total,
+                              "max_share": PARAM_MOVED_SHARE}
+    if not moved <= PARAM_MOVED_SHARE * total:
+        failures.append(f"params: {moved} of {total} entries more than "
+                        f"1e-6 apart, above {PARAM_MOVED_SHARE}")
     emit({"phase": FLOWNETS[flownet][1] + "train_vs_cpu", "hw": [128, 128],
           "batch": 2, "flownet": flownet,
           "metrics_gpu": m_gpu, "metrics_cpu": m_cpu, **report})

@@ -34,6 +34,21 @@ CORR_CASES = [
     ((1, 12, 20, 20), 21, 2),      # FlowNetC6's patch and dilation
     ((1, 6, 9, 17), 3, 3),
 ]
+# Each tile configuration of the backward (correlation.cu, launch_bwd: 16
+# or 56 pixels of one residue class a block, 32 to 256 channels, the
+# channel block halved while the grid has fewer than 132 blocks) and its
+# ragged edges, beside CORR_CASES' 16-pixel tiles of 32 channels
+BWD_CASES = [
+    ((1, 5, 70, 20), 9, 1),       # 56 pixels, 32 channels: W off the tile
+    ((1, 5, 40, 17), 3, 1),       # C not a multiple of 4: 4-byte copies
+    ((2, 12, 61, 72), 7, 1),      # 64 channels, C not a multiple of them
+    ((2, 20, 66, 64), 9, 1),      # 64 channels, C = 64
+    ((2, 17, 75, 128), 5, 2),     # 128 channels, d=2 with odd W
+    ((3, 11, 26, 100), 9, 1),     # 16 pixels, 64 channels, ragged C
+    ((4, 4, 13, 192), 9, 1),      # Back2Future's coarsest level: 16
+                                  # pixels, 32 channels (halved twice)
+    ((4, 32, 104, 256), 21, 2),   # FlowNetC6's: 256 channels
+]
 
 pytestmark = pytest.mark.cuda
 
@@ -77,7 +92,7 @@ def test_correlation_kernel_rejects_what_it_does_not_take(cuda):
         tc.correlation_backward_cuda(a, a, g.transpose(1, 2), 9)
 
 
-@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES)
+@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES + BWD_CASES)
 def test_correlation_backward_kernel_matches_plain(cuda, shape, patch,
                                                    dilation):
     a, b = _randn(shape, cuda, 1), _randn(shape, cuda, 2)
@@ -139,33 +154,40 @@ def test_row_gather_kernel_rejects_what_it_does_not_take(cuda):
         rg.row_gather_cuda(img.t(), idx.t())
 
 
-def test_flownetc6_gradients_match_cpu(cuda):
+def flownetc6_gradients(net, device) -> tuple[dict, dict, tuple]:
     """FlowNetC6 in training mode at 128x128, the six flows weighted by a
-    fixed random cotangent: the gradients of both frames (the second frame
-    reaches the flows only through K1 and K1', whose output gradient is a
-    channel slice of a concatenation, permuted to NHWC) and of the stem,
-    on the card against the CPU's plain correlation."""
+    fixed random cotangent: the gradients of both frames and of two stem
+    layers on the CPU (plain correlation) and on `device`, and the K1 and
+    K1' launches of the second run."""
     torch.backends.cudnn.allow_tf32 = False
-    net = models.build("FlowNetC6").train()
     x1, x2 = _randn((1, 3, 128, 128), "cpu", 8), _randn((1, 3, 128, 128),
                                                          "cpu", 9)
     cots = [_randn((1, 2, 128 >> k, 128 >> k), "cpu", 10 + k)
             for k in range(6)]
     grads = []
-    for dev in ("cpu", cuda):
+    for dev in ("cpu", device):
         n = net.to(dev)
         n.zero_grad()
         a = x1.to(dev).detach().requires_grad_()
         b = x2.to(dev).detach().requires_grad_()
         tc.launches = tc.backward_launches = 0
         sum((c.to(dev) * f).sum() for c, f in zip(cots, n(a, b))).backward()
-        if dev == cuda:
-            assert (tc.launches, tc.backward_launches) == (1, 1)
         grads.append({"x1": a.grad.cpu(), "x2": b.grad.cpu(),
-                      "conv3": n.conv3[0].weight.grad.cpu(),
-                      "conv3_1": n.conv3_1[0].weight.grad.cpu()})
-    for k, e in grads[0].items():
-        assert_close(grads[1][k], e, NET_RTOL * float(e.abs().max()), k)
+                      "conv3": n.conv3[0].weight.grad.cpu().clone(),
+                      "conv3_1": n.conv3_1[0].weight.grad.cpu().clone()})
+    return grads[0], grads[1], (tc.launches, tc.backward_launches)
+
+
+def test_flownetc6_gradients_match_cpu(cuda):
+    """FlowNetC6's gradients (see flownetc6_gradients) on the card against
+    the CPU's: the second frame reaches the flows only through K1 and K1',
+    whose output gradient is a channel slice of a concatenation, permuted
+    to NHWC."""
+    cpu, card, launches = flownetc6_gradients(
+        models.build("FlowNetC6").train(), cuda)
+    assert launches == (1, 1)
+    for k, e in cpu.items():
+        assert_close(card[k], e, NET_RTOL * float(e.abs().max()), k)
 
 
 def test_flownetc6_train_step_launches(cuda):
@@ -196,3 +218,21 @@ def test_flownetc6_train_step_launches(cuda):
                    zip(before, nets["flow"].parameters()))
         assert same == fixed
     assert counts == [(2, 2), (2, 0)]
+
+
+if __name__ == "__main__":
+    # FlowNetC6's gradients on the card against the CPU's, for the nets of
+    # torch seeds 0..n-1: each error over its tolerance (NET_RTOL of the
+    # largest entry). Run from the repository root:
+    #   PYTHONPATH=. python tests/test_torch_kernels_cuda.py 15
+    import json
+    import sys
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for seed in range(int(sys.argv[1]) if len(sys.argv) > 1 else 15):
+        torch.manual_seed(seed)
+        cpu, card, _ = flownetc6_gradients(
+            models.build("FlowNetC6").train(), torch.device("cuda"))
+        print(json.dumps({"seed": seed, "error_over_tolerance": {
+            k: float((card[k] - e).abs().max())
+            / (NET_RTOL * float(e.abs().max())) for k, e in cpu.items()}}),
+            flush=True)
