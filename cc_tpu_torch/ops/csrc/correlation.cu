@@ -9,22 +9,54 @@
 //
 // with f2 read as 0 out of bounds; out is [B,H,W,P*P].
 //
-// Bound: memory. A launch must read f1 and f2 once and write P*P floats per
-// pixel. On the main path (P=9, d=1, B=4) that is 30.9 MB at pyramid level 2
-// ([64,208,32]) down to 0.39 MB at level 6 ([4,13,192]); the whole forward
-// does about 1 GFLOP of it, far under the fp32 compute line.
+// Bound. A launch must read f1 and f2 once and write the cost volume once,
+// 4*(2C + P*P) bytes a pixel, and do 2*P*P*C operations a pixel. At
+// Back2Future's five shapes (P=9, d=1, [4,64,208,32] .. [4,4,13,192]) that
+// is bytes: 30.9 MB at level 2 against 0.28 GFLOP. At FlowNetC6's
+// ([4,32,104,256], P=21, d=2) it is operations: 3.0 GFLOP against 51 MB.
 //
-// Design against that bound: each input tile is read once from device
-// memory into shared memory and reused from there. One block owns one
-// displacement row pi for TW pixels of one image row: it stages the f1 tile
-// [TW x CC] and the f2 row segment [(TW + 2*halo) x CC] (zero-filled outside
-// the image) in shared memory, CC channels at a time, and each thread keeps P
-// fp32 sums for its pixel. The P sums of a pixel are contiguous in `out`, so
-// they go through shared memory once more and are written by consecutive
-// threads to consecutive addresses. Whole rows of f2 outside the image are
-// not read at all. The f1 tile is read by the P blocks of its pixels, which
-// run close together and hit L2. P is a template parameter, so the sums stay
-// in registers for every odd P up to 21 (P=21, d=2 is FlowNetC6's case).
+// Why CUDA cores and not tensor cores: for one displacement row the forward
+// is a banded product, [TW x C] times [C x (TW+P-1)], of which only the P
+// diagonals are wanted; a dense product over the band does (TW+P-1)/P times
+// the useful work (3.6x at 56 pixels, P=21), and the port runs fp32 held to
+// 1e-5, which 3xTF32 would triple again. So the sums are fp32 FMAs, and the
+// design keeps the FMA units fed from registers, where one shared-memory
+// load fed one FMA before:
+//
+// 1. A block is one residue class, one image row and one displacement row:
+//    pixels x = r + d*m of one residue r (mod d) form a dilation-1 problem
+//    in m, so a block stages TW consecutive m of f1's row h and the TW + P
+//    - 1 columns of its class in f2's row h + (pi-P/2)*d, the halo
+//    included. A block whose f2 row lies outside the image stages nothing
+//    and writes its zeros.
+// 2. A register tile along the diagonal. A thread owns NP consecutive m and
+//    all P taps of row pi, NP*P sums. Its pixel i at tap j reads staged
+//    column s = i + j, so for each channel quad it loads its NP f1 float4s
+//    once, then each of the NP + P - 1 columns' float4 once, and does 4
+//    FMAs for every live (s, i): 4*NP*P FMAs for 2*NP + P - 1 sixteen-byte
+//    loads (336 for 28 at P=21, NP=4; 288 for 24 at P=9, NP=8). The loops
+//    unroll fully, since which (s, i) pairs are live is fixed by P and NP.
+// 3. Channels across the lanes of a pixel group, reduced by warp shuffles.
+//    KG consecutive lanes share a pixel group, and lane k sums channel quad
+//    k of every chunk of CK = 4*KG channels. After the last chunk the NP*P
+//    sums are reduced over the KG lanes by a butterfly of __shfl_xor_sync,
+//    log2(KG) rounds that each halve what a lane holds: a lane sends the
+//    half its partner keeps and adds the half it keeps, so the group moves
+//    about NP*P*(KG-1) values, not NP*P*KG*log2(KG) as a full butterfly
+//    would. The order of every sum is fixed, so the bits are the same on
+//    every run. The sums then pass through shared memory once, so that
+//    consecutive threads write consecutive floats of the output. No
+//    shared-memory reduction, no atomics, nothing across blocks.
+// 4. Overlapped staging: two buffers, each f1's [TW x CK] and f2's [(TW+P-1)
+//    x CK]; chunk k+1 goes in by cp.async (16-byte copies, 4-byte ones when
+//    C % 4 != 0 or an input is not 16-byte aligned; channels past C
+//    zero-filled) while chunk k computes, with one barrier per chunk.
+// 5. Tiles by shape, in fwd_shape: wide rows take TW = 56 (52 of
+//    FlowNetC6's 104 pixels a residue) with NP = 8 up to P = 9 and NP = 4
+//    above, near 84 sums a thread; rows of at most 32 pixels a residue
+//    (Back2Future's levels 5-6) take NP = 2 and TW = 16, so that
+//    [4,4,13,192] still has 144 blocks; KG = 8, or 16 on narrow rows of
+//    more than 64 channels, which halves their chain of chunks.
 //
 // BACKWARD. Replaces cc_tpu/ops/correlation_pallas.py::_corr_bwd, the
 // custom_vjp backward of the Pallas kernel (XLA there). For the output
@@ -80,81 +112,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
-
-// The forward's tiles
-constexpr int TW = 64;      // pixels per block, one per thread
-constexpr int CC = 16;      // channels staged per step
-constexpr int LD = CC + 1;  // odd row stride: thread t's rows hit distinct banks
-
-template <int P>
-__global__ void __launch_bounds__(TW)
-corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                float* __restrict__ out, int H, int W, int C, int dil,
-                float inv_c) {
-  constexpr int R = P / 2;
-  const int halo = R * dil;
-  const int span = TW + 2 * halo;
-  extern __shared__ float smem[];
-  float* s1 = smem;              // [TW][LD]
-  float* s2 = s1 + TW * LD;      // [span][LD]
-  float* so = s2 + span * LD;    // [TW][P]
-
-  const int t = threadIdx.x;
-  const int w0 = blockIdx.x * TW;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z / P;
-  const int pi = blockIdx.z % P;
-  const int y2 = h + (pi - R) * dil;
-
-  float acc[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) acc[j] = 0.f;
-
-  if (y2 >= 0 && y2 < H) {  // the same for the whole block
-    const float* row1 = f1 + ((long long)b * H + h) * W * C;
-    const float* row2 = f2 + ((long long)b * H + y2) * W * C;
-    for (int c0 = 0; c0 < C; c0 += CC) {
-      for (int i = t; i < TW * CC; i += TW) {
-        const int p = i / CC, k = i % CC, x = w0 + p, c = c0 + k;
-        s1[p * LD + k] = (x < W && c < C) ? row1[(long long)x * C + c] : 0.f;
-      }
-      for (int i = t; i < span * CC; i += TW) {
-        const int p = i / CC, k = i % CC, x = w0 - halo + p, c = c0 + k;
-        s2[p * LD + k] = (x >= 0 && x < W && c < C)
-                             ? row2[(long long)x * C + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < CC; ++k) {
-        const float a = s1[t * LD + k];
-#pragma unroll
-        for (int j = 0; j < P; ++j)
-          acc[j] = fmaf(a, s2[(t + j * dil) * LD + k], acc[j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < P; ++j) so[t * P + j] = acc[j] * inv_c;
-  __syncthreads();
-
-  const int npix = min(TW, W - w0);
-  float* orow = out + (((long long)b * H + h) * W + w0) * (P * P) + pi * P;
-  for (int i = t; i < npix * P; i += TW) {
-    const int p = i / P, j = i % P;
-    orow[(long long)p * (P * P) + j] = so[i];
-  }
-}
-
-// The backward's tiles (see the head note): NC channels a thread and PX
-// pixel groups a block; NP pixels a group and CG channel groups a block
-// are template parameters.
-constexpr int NC = 8;
-constexpr int PX = 8;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {
@@ -177,6 +138,190 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// The forward's tiles: NP pixels (of one residue class) a thread, KG lanes
+// a pixel group, NPG pixel groups a block (head note, points 1-4).
+template <int P, int NP, int KG, int NPG>
+struct FwdTile {
+  static constexpr int R = P / 2;
+  static constexpr int TW = NPG * NP;       // pixels (of one residue) a block
+  static constexpr int SPAN = TW + P - 1;   // staged f2 columns, halo included
+  static constexpr int CK = 4 * KG;         // channels a chunk
+  static constexpr int THREADS = NPG * KG;
+  static constexpr int V = NP * P;          // sums a thread
+  // one buffer: f1 [TW][CK], then f2 [SPAN][CK]
+  static constexpr int BUF = (TW + SPAN) * CK;
+};
+
+// Start the copies of one chunk (channels c0 .. c0+CK-1) into one buffer:
+// f1's row at the block's TW pixels, then f2's row at its SPAN columns.
+// Zero outside the image and past C.
+template <int P, int NP, int KG, int NPG>
+__device__ __forceinline__ void fwd_stage(
+    float* buf, const float* __restrict__ row1, const float* __restrict__ row2,
+    const float* __restrict__ any, int r, int m0, int W, int C, int c0,
+    int dil, bool vec) {
+  using T = FwdTile<P, NP, KG, NPG>;
+  const int t = threadIdx.x;
+  if (vec) {  // 16-byte copies: KG of them a staged column
+    for (int e = t; e < (T::TW + T::SPAN) * KG; e += T::THREADS) {
+      const int u = e / KG, q = e % KG;
+      const bool first = u < T::TW;
+      const int m = first ? m0 + u : m0 - T::R + (u - T::TW);
+      const int x = r + dil * m, c = c0 + 4 * q;
+      const bool ok = m >= 0 && x < W && c < C;
+      cp_async16(buf + 4 * e,
+                 ok ? (first ? row1 : row2) + (long long)x * C + c : any, ok);
+    }
+  } else {
+    for (int e = t; e < (T::TW + T::SPAN) * T::CK; e += T::THREADS) {
+      const int u = e / T::CK, k = e % T::CK;
+      const bool first = u < T::TW;
+      const int m = first ? m0 + u : m0 - T::R + (u - T::TW);
+      const int x = r + dil * m, c = c0 + k;
+      const bool ok = m >= 0 && x < W && c < C;
+      cp_async4(buf + e,
+                ok ? (first ? row1 : row2) + (long long)x * C + c : any, ok);
+    }
+  }
+}
+
+// One chunk's sums for a thread: its NP pixels (staged f1 rows a .. a+NP-1,
+// staged f2 columns a .. a+NP+P-2) at channel quad `lane` of the chunk.
+// acc[i*P + j] is pixel i at tap j.
+template <int P, int NP, int KG, int NPG>
+__device__ __forceinline__ void fwd_chunk(const float* buf, int a, int lane,
+                                          float (&acc)[NP * P]) {
+  using T = FwdTile<P, NP, KG, NPG>;
+  const float* s1 = buf + a * T::CK + 4 * lane;
+  const float* s2 = buf + (T::TW + a) * T::CK + 4 * lane;
+  float4 f[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    f[i] = *reinterpret_cast<const float4*>(s1 + i * T::CK);
+#pragma unroll
+  for (int s = 0; s < NP + P - 1; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(s2 + s * T::CK);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int j = s - i;  // the tap of pixel i that reads column s
+      if (j < 0 || j >= P) continue;
+      float& x = acc[i * P + j];
+      x = fmaf(f[i].x, v.x, x);
+      x = fmaf(f[i].y, v.y, x);
+      x = fmaf(f[i].z, v.z, x);
+      x = fmaf(f[i].w, v.w, x);
+    }
+  }
+}
+
+// The number of values a lane holds after each round halves it: (n+1)/2
+// for every round of a butterfly over KG lanes.
+__host__ __device__ constexpr int halved(int n, int kg) {
+  return kg > 1 ? halved((n + 1) / 2, kg / 2) : n;
+}
+
+// Sum a lane's N values v[0..N) over the lanes of its group whose index
+// differs in bits M, M/2, .., 1, leaving each lane the total of a part: a
+// round splits the values in halves, a lane with bit M keeps the upper half
+// and sends the lower one, its partner the other way round, and each adds
+// what it received to what it kept. Logical value lo + s is in v[s] for
+// lo + s < hi afterwards (v[s] is garbage otherwise); the order of every
+// sum is fixed.
+template <int N, int M, int V>
+__device__ __forceinline__ void reduce_scatter(float (&v)[V], int lane,
+                                               unsigned group, int& lo,
+                                               int& hi) {
+  if constexpr (M >= 1) {
+    constexpr int H = (N + 1) / 2;
+    const bool upper = lane & M;
+#pragma unroll
+    for (int s = 0; s < H; ++s) {
+      const float a = v[s];
+      const float b = s + H < N ? v[s + H] : 0.f;
+      const float keep = upper ? b : a;
+      v[s] = keep + __shfl_xor_sync(group, upper ? a : b, M);
+    }
+    if (upper)
+      lo += H;
+    else
+      hi = min(hi, lo + H);
+    reduce_scatter<H, M / 2>(v, lane, group, lo, hi);
+  }
+}
+
+// Grid: x = residue r (mod dil) times column tile, y = image row h,
+// z = (batch, displacement row pi).
+template <int P, int NP, int KG, int NPG>
+__global__ void __launch_bounds__(NPG * KG)
+corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                float* __restrict__ out, int H, int W, int C, int dil,
+                float inv_c, bool vec) {
+  using T = FwdTile<P, NP, KG, NPG>;
+  constexpr int R = T::R;
+  extern __shared__ __align__(16) float fwd_smem[];
+
+  const int ntile = ((W + dil - 1) / dil + T::TW - 1) / T::TW;
+  const int r = blockIdx.x / ntile;
+  const int m0 = (blockIdx.x % ntile) * T::TW;
+  const int wr = (W - r + dil - 1) / dil;  // pixels of residue r in a row
+  if (m0 >= wr) return;  // the same for the whole block
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / P;
+  const int pi = blockIdx.z % P;
+  const int y2 = h + (pi - R) * dil;
+  const bool live = y2 >= 0 && y2 < H;  // the same for the whole block
+  const int t = threadIdx.x;
+  const int lane = t % KG;
+  const int a = (t / KG) * NP;  // the group's first pixel in the tile
+  float* so = fwd_smem;         // [TW][P] after the last chunk
+
+  if (live) {
+    const float* row1 = f1 + ((long long)b * H + h) * W * C;
+    const float* row2 = f2 + ((long long)b * H + y2) * W * C;
+    float acc[T::V];
+#pragma unroll
+    for (int i = 0; i < T::V; ++i) acc[i] = 0.f;
+    const int nchunk = (C + T::CK - 1) / T::CK;
+    fwd_stage<P, NP, KG, NPG>(fwd_smem, row1, row2, f1, r, m0, W, C, 0, dil,
+                              vec);
+    cp_async_commit();
+    for (int k = 0; k < nchunk; ++k) {
+      cp_async_wait_all();  // this thread's copies of chunk k have landed
+      __syncthreads();      // everyone's have, and chunk k-1's buffer is free
+      if (k + 1 < nchunk)
+        fwd_stage<P, NP, KG, NPG>(fwd_smem + ((k + 1) & 1) * T::BUF, row1,
+                                  row2, f1, r, m0, W, C, (k + 1) * T::CK,
+                                  dil, vec);
+      cp_async_commit();
+      fwd_chunk<P, NP, KG, NPG>(fwd_smem + (k & 1) * T::BUF, a, lane, acc);
+    }
+    // the group's KG lanes, aligned within the warp
+    const unsigned group = ((1u << KG) - 1) << (t % 32 / KG * KG);
+    int lo = 0, hi = T::V;
+    reduce_scatter<T::V, KG / 2>(acc, lane, group, lo, hi);
+    __syncthreads();  // everyone is done with the last chunk's buffer
+    constexpr int HELD = halved(T::V, KG);
+#pragma unroll
+    for (int s = 0; s < HELD; ++s)
+      if (lo + s < hi) so[a * P + lo + s] = acc[s] * inv_c;
+    __syncthreads();
+  }
+
+  // consecutive threads write consecutive floats of each pixel's P outputs
+  const int npix = min(T::TW, wr - m0);
+  float* orow = out + ((long long)b * H + h) * W * (P * P) + pi * P;
+  for (int e = t; e < npix * P; e += T::THREADS) {
+    const int p = e / P, j = e - p * P;
+    orow[(long long)(r + dil * (m0 + p)) * (P * P) + j] = live ? so[e] : 0.f;
+  }
+}
+
+// The backward's tiles (see the head note): NC channels a thread and PX
+// pixel groups a block; NP pixels a group and CG channel groups a block
+// are template parameters.
+constexpr int NC = 8;
+constexpr int PX = 8;
 
 template <int P, int NP, int CG>
 struct BwdTile {
@@ -441,17 +586,55 @@ cudaError_t launch_bwd(const float* f1, const float* f2, const float* g,
   }
 }
 
-template <int P>
-cudaError_t launch(const float* f1, const float* f2, float* out, int B, int H,
-                   int W, int C, int dil, cudaStream_t stream) {
-  const int span = TW + 2 * (P / 2) * dil;
-  const size_t smem = sizeof(float) * ((size_t)(TW + span) * LD + TW * P);
-  cudaError_t e = fit_smem(corr_fwd_kernel<P>, smem);
+// The forward's tiles from the shape (head note, point 5): NP pixels a
+// thread and KG lanes a pixel group. Rows of more than 32 pixels a residue
+// take 56-pixel tiles with NP = 8 up to P = 9 and 4 above (72 to 84 sums a
+// thread); narrower rows (Back2Future's levels 5-6: [26,128], [13,192])
+// take 16-pixel tiles with NP = 2, so that the grid still fills the 132
+// SMs, and KG = 16 where C > 64, which halves their chain of chunks.
+struct FwdShape {
+  int np, kg;
+};
+
+constexpr int fwd_wide_np(int patch) { return patch <= 9 ? 8 : 4; }
+
+FwdShape fwd_shape(int W, int C, int dil, int patch) {
+  const int wd = (W + dil - 1) / dil;
+  if (wd > 32) return {fwd_wide_np(patch), 8};
+  return {2, C > 64 ? 16 : 8};
+}
+
+// pixel groups a block: 56 pixels on wide rows, 16 on narrow ones
+constexpr int fwd_groups(int np) { return np == 2 ? 8 : 56 / np; }
+
+template <int P, int NP, int KG>
+cudaError_t launch_fwd_tiles(const float* f1, const float* f2, float* out,
+                             int B, int H, int W, int C, int dil,
+                             cudaStream_t stream) {
+  constexpr int NPG = fwd_groups(NP);
+  using T = FwdTile<P, NP, KG, NPG>;
+  const size_t smem = sizeof(float) * (size_t)(C > T::CK ? 2 : 1) * T::BUF;
+  cudaError_t e = fit_smem(corr_fwd_kernel<P, NP, KG, NPG>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((W + TW - 1) / TW, H, B * P);
-  corr_fwd_kernel<P><<<grid, TW, smem, stream>>>(f1, f2, out, H, W, C, dil,
-                                                  1.0f / C);
+  const int ntile = ((W + dil - 1) / dil + T::TW - 1) / T::TW;
+  const dim3 grid(dil * ntile, H, B * P);
+  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(f1)
+                                  | reinterpret_cast<uintptr_t>(f2)) % 16 == 0;
+  corr_fwd_kernel<P, NP, KG, NPG><<<grid, T::THREADS, smem, stream>>>(
+      f1, f2, out, H, W, C, dil, 1.0f / C, vec);
   return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_fwd(const float* f1, const float* f2, float* out, int B,
+                       int H, int W, int C, int dil, cudaStream_t stream) {
+  const FwdShape t = fwd_shape(W, C, dil, P);
+  if (t.np != 2)
+    return launch_fwd_tiles<P, fwd_wide_np(P), 8>(f1, f2, out, B, H, W, C,
+                                                  dil, stream);
+  if (t.kg == 16)
+    return launch_fwd_tiles<P, 2, 16>(f1, f2, out, B, H, W, C, dil, stream);
+  return launch_fwd_tiles<P, 2, 8>(f1, f2, out, B, H, W, C, dil, stream);
 }
 
 }  // namespace
@@ -463,8 +646,20 @@ extern "C" int cc_correlation_forward(const float* f1, const float* f2,
                                       int patch, int dilation, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_patch(patch, [&](auto p) {
-    return launch<decltype(p)::value>(f1, f2, out, B, H, W, C, dilation, s);
+    return launch_fwd<decltype(p)::value>(f1, f2, out, B, H, W, C, dilation,
+                                          s);
   });
+}
+
+// The forward's tiles for a shape, as cc_correlation_forward takes them:
+// pixels of one residue class a block, pixels a thread, channels a chunk.
+extern "C" void cc_correlation_forward_tiles(int W, int C, int patch,
+                                             int dilation, int* pixels,
+                                             int* per_thread, int* channels) {
+  const FwdShape t = fwd_shape(W, C, dilation, patch);
+  *pixels = fwd_groups(t.np) * t.np;
+  *per_thread = t.np;
+  *channels = 4 * t.kg;
 }
 
 // The backward's tiles for a shape, as cc_correlation_backward takes them:

@@ -13,8 +13,9 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    (fails above its tolerance), kernel and plain device times (CUDA-graph
    replays, see time_device), the bound (bytes at the card's memory rate or
    fp32 operations at its peak, whichever is larger) and, where one PyTorch
-   call computes the same function, that call's time; for K1', its tiles and
-   the bytes it stages from L2 into shared memory, counted from them.
+   call computes the same function, that call's time; for K1 and K1', the
+   same bits on a second launch, the tiles and the bytes each stages from
+   L2 into shared memory, counted from them.
    - K1, the correlation forward, and K1', its backward: Back2Future's five
      pyramid shapes (P=9, d=1), FlowNetC6's shape (P=21, d=2) and a ragged
      shape.
@@ -130,6 +131,41 @@ def corr_work(shape, patch, backward: bool):
     return 4 * pix * (2 * c + pp), 2 * pix * pp * c
 
 
+def fwd_tiles(shape, patch: int, dil: int) -> tuple[int, int, int]:
+    """K1's tiles as correlation.cu picks them for a shape: (pixels of one
+    residue class a block, pixels a thread, channels a chunk)."""
+    fn = _build.load("correlation").cc_correlation_forward_tiles
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    tw, npx, ck = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn(shape[2], shape[3], patch, dil, ctypes.byref(tw), ctypes.byref(npx),
+       ctypes.byref(ck))
+    return tw.value, npx.value, ck.value
+
+
+def live_rows(h: int, patch: int, dil: int) -> int:
+    """(image row, displacement row) pairs whose displaced row lies in the
+    image: the rows a correlation kernel stages."""
+    r = patch // 2
+    return sum(min(patch - 1, r + (h - 1 - y) // dil) - max(0, r - y // dil)
+               + 1 for y in range(h))
+
+
+def residue_tiles(w: int, dil: int, tw: int) -> int:
+    """Column tiles of tw pixels over the residue classes of a row."""
+    return sum(-(-((w - res + dil - 1) // dil) // tw) for res in range(dil))
+
+
+def fwd_staged_bytes(shape, patch: int, dil: int) -> int:
+    """Bytes one K1 launch copies from L2 into shared memory: for each
+    block whose f2 row lies in the image, each chunk of ck channels at tw
+    pixels of f1 and tw + P - 1 columns of f2."""
+    b, h, w, c = shape
+    tw, _, ck = fwd_tiles(shape, patch, dil)
+    per_block = 4 * (2 * tw + patch - 1) * ck * -(-c // ck)
+    return b * live_rows(h, patch, dil) * residue_tiles(w, dil, tw) * per_block
+
+
 def bwd_tiles(shape, dil: int) -> tuple[int, int]:
     """K1''s tiles as correlation.cu picks them for a shape: (pixels of one
     residue class a block, channels a block)."""
@@ -148,12 +184,10 @@ def bwd_staged_bytes(shape, patch: int, dil: int) -> int:
     or tw + P - 1 (df2)."""
     b, h, w, c = shape
     tw, cb = bwd_tiles(shape, dil)
-    r, span = patch // 2, tw + patch - 1
-    rows = sum(min(patch - 1, r + (h - 1 - y) // dil)
-               - max(0, r - y // dil) + 1 for y in range(h))
-    tiles = sum(-(-((w - res + dil - 1) // dil) // tw) for res in range(dil))
+    span = tw + patch - 1
     per_row = 4 * (2 * span * cb + (tw + span) * patch)  # df1's and df2's
-    return b * -(-c // cb) * tiles * rows * per_row
+    return (b * -(-c // cb) * residue_tiles(w, dil, tw)
+            * live_rows(h, patch, dil) * per_row)
 
 
 def time_device(fn, n: int = 20, reps: int = 5) -> float:
@@ -214,18 +248,15 @@ def phase_correlation(bw, flops, backward: bool):
             plain = lambda: corr.correlation_backward_plain(f1, f2, g, patch,
                                                             dil)
         else:
-            kernel = lambda: corr.correlation_cuda(f1, f2, patch, dil)
-            plain = lambda: corr.correlation_plain(f1, f2, patch, dil)
+            kernel = lambda: (corr.correlation_cuda(f1, f2, patch, dil),)
+            plain = lambda: (corr.correlation_plain(f1, f2, patch, dil),)
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
-        if backward:
-            err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-            # gathers only, no atomics: the same bits on every launch
-            if not all(map(torch.equal, kernel(), out)):
-                raise AssertionError(f"{name} differs between two launches "
-                                     f"at {shape} P={patch} d={dil}")
-        else:
-            err = float((out - ref).abs().max())
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        # sums in a fixed order, no atomics: the same bits on every launch
+        if not all(map(torch.equal, kernel(), out)):
+            raise AssertionError(f"{name} differs between two launches "
+                                 f"at {shape} P={patch} d={dil}")
         ms = time_device(kernel)
         plain_ms = time_device(plain, n=5, reps=3)
         bnd, by = bound_ms(*corr_work(shape, patch, backward), bw, flops)
@@ -236,6 +267,9 @@ def phase_correlation(bw, flops, backward: bool):
         if backward:
             row["tiles"] = bwd_tiles(shape, dil)
             row["staged_mb"] = bwd_staged_bytes(shape, patch, dil) / 1e6
+        else:
+            row["tiles"] = fwd_tiles(shape, patch, dil)
+            row["staged_mb"] = fwd_staged_bytes(shape, patch, dil) / 1e6
         emit(row)
         if not err <= ATOL:
             raise AssertionError(f"{name} disagrees at {shape} P={patch} "

@@ -49,6 +49,18 @@ BWD_CASES = [
                                   # pixels, 32 channels (halved twice)
     ((4, 32, 104, 256), 21, 2),   # FlowNetC6's: 256 channels
 ]
+# The forward's tile configurations (correlation.cu, fwd_shape: 56 pixels
+# of one residue class a block, 8 a thread up to P = 9 and 4 above; 16
+# pixels, 2 a thread, on rows of at most 32 a residue; chunks of 32
+# channels, 64 on narrow rows of more than 64) that CORR_CASES and
+# BWD_CASES leave out, and their ragged edges
+FWD_CASES = [
+    ((1, 6, 90, 36), 21, 1),      # 56 x 4: W off the tile, C off the chunk,
+                                  # H under the reach
+    ((2, 9, 83, 30), 21, 2),      # 56 x 4: d=2 with odd W, 4-byte copies
+    ((1, 4, 30, 64), 9, 1),       # 16 x 2, two 32-channel chunks
+    ((1, 5, 100, 8), 3, 3),       # 56 x 8 over three residue classes
+]
 
 pytestmark = pytest.mark.cuda
 
@@ -66,7 +78,8 @@ def _randn(shape, device, seed=0):
     return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("shape,patch,dilation", CORR_CASES)
+@pytest.mark.parametrize("shape,patch,dilation",
+                         CORR_CASES + BWD_CASES + FWD_CASES)
 def test_correlation_kernel_matches_plain(cuda, shape, patch, dilation):
     a, b = _randn(shape, cuda, 0), _randn(shape, cuda, 7)
     before = tc.launches
@@ -75,6 +88,22 @@ def test_correlation_kernel_matches_plain(cuda, shape, patch, dilation):
     torch.cuda.synchronize()
     assert tc.launches == before + 1
     assert_close(out, ref, ATOL, f"{shape} P={patch} d={dilation}")
+    # sums in a fixed order, no atomics: the same bits on every run
+    assert torch.equal(tc.correlation_cuda(a, b, patch, dilation), out)
+
+
+def test_correlation_kernel_takes_unaligned_inputs(cuda):
+    """Contiguous inputs that start 4 bytes off a 16-byte boundary: the
+    forward then stages by 4-byte copies."""
+    shape, patch = (2, 6, 70, 32), 9
+    n = int(np.prod(shape))
+    a = torch.zeros(n + 1, device=cuda)[1:].view(shape)
+    b = torch.zeros(n + 1, device=cuda)[1:].view(shape)
+    a.copy_(_randn(shape, cuda, 0))
+    b.copy_(_randn(shape, cuda, 7))
+    assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    out = tc.correlation_cuda(a, b, patch)
+    assert_close(out, tc.correlation_plain(a, b, patch), ATOL, "unaligned")
 
 
 def test_correlation_kernel_rejects_what_it_does_not_take(cuda):
