@@ -183,16 +183,68 @@ def test_row_gather_kernel_rejects_what_it_does_not_take(cuda):
         rg.row_gather_cuda(img.t(), idx.t())
 
 
+def _flownetc6_inputs():
+    """Two 128x128 frames and a cotangent for each of the six flows."""
+    x1, x2 = _randn((1, 3, 128, 128), "cpu", 8), _randn((1, 3, 128, 128),
+                                                         "cpu", 9)
+    cots = [_randn((1, 2, 128 >> k, 128 >> k), "cpu", 10 + k)
+            for k in range(6)]
+    return x1, x2, cots
+
+
+def flownetc6_layer_errors(net, device) -> list[dict]:
+    """FlowNetC6 run as flownetc6_gradients runs it, on the CPU and on
+    `device`, compared call by call: for each call of each leaf module in
+    order, and for the cost volume before its LeakyReLU, the largest error
+    of the output and of its gradient on `device`, relative to the largest
+    entry of the CPU's; and the output's entries whose sign differs, with
+    the largest of them relative to the same entry."""
+    torch.backends.cudnn.allow_tf32 = False
+    x1, x2, cots = _flownetc6_inputs()
+    runs = []
+    for dev in ("cpu", device):
+        n = net.to(dev)
+        n.zero_grad()
+        calls = []
+
+        def keep(name, out):
+            out.retain_grad()
+            calls.append((name, out))
+            return out
+
+        hooks = [m.register_forward_hook(
+                     lambda m, i, o, name=name: keep(name, o))
+                 for name, m in n.named_modules() if not list(m.children())]
+        correlate = n._correlate
+        n._correlate = lambda a, b: keep("cost_volume", correlate(a, b))
+        try:
+            flows = n(x1.to(dev), x2.to(dev))
+            sum((c.to(dev) * f).sum() for c, f in zip(cots, flows)).backward()
+        finally:
+            del n._correlate
+            for h in hooks:
+                h.remove()
+        runs.append([(k, o.detach().cpu(), o.grad.cpu()) for k, o in calls])
+    rows = []
+    for (k, oc, gc), (_, o, g) in zip(*runs):
+        top = float(oc.abs().max())
+        flips = (oc > 0) != (o > 0)
+        rows.append({"call": k, "output": float((o - oc).abs().max()) / top,
+                     "gradient": float((g - gc).abs().max()
+                                       / gc.abs().max()),
+                     "sign_flips": int(flips.sum()),
+                     "largest_flipped": float(oc[flips].abs().max()) / top
+                     if flips.any() else 0.0})
+    return rows
+
+
 def flownetc6_gradients(net, device) -> tuple[dict, dict, tuple]:
     """FlowNetC6 in training mode at 128x128, the six flows weighted by a
     fixed random cotangent: the gradients of both frames and of two stem
     layers on the CPU (plain correlation) and on `device`, and the K1 and
     K1' launches of the second run."""
     torch.backends.cudnn.allow_tf32 = False
-    x1, x2 = _randn((1, 3, 128, 128), "cpu", 8), _randn((1, 3, 128, 128),
-                                                         "cpu", 9)
-    cots = [_randn((1, 2, 128 >> k, 128 >> k), "cpu", 10 + k)
-            for k in range(6)]
+    x1, x2, cots = _flownetc6_inputs()
     grads = []
     for dev in ("cpu", device):
         n = net.to(dev)
@@ -252,11 +304,19 @@ def test_flownetc6_train_step_launches(cuda):
 if __name__ == "__main__":
     # FlowNetC6's gradients on the card against the CPU's, for the nets of
     # torch seeds 0..n-1: each error over its tolerance (NET_RTOL of the
-    # largest entry). Run from the repository root:
+    # largest entry); or, with --layers, for the net of one seed, call by
+    # call (flownetc6_layer_errors). Run from the repository root:
     #   PYTHONPATH=. python tests/test_torch_kernels_cuda.py 15
+    #   PYTHONPATH=. python tests/test_torch_kernels_cuda.py --layers 14
     import json
     import sys
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] == ["--layers"]:
+        torch.manual_seed(int(sys.argv[2]))
+        for row in flownetc6_layer_errors(models.build("FlowNetC6").train(),
+                                          torch.device("cuda")):
+            print(json.dumps({"seed": int(sys.argv[2]), **row}))
+        sys.exit(0)
     for seed in range(int(sys.argv[1]) if len(sys.argv) > 1 else 15):
         torch.manual_seed(seed)
         cpu, card, _ = flownetc6_gradients(
