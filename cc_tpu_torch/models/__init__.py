@@ -21,10 +21,13 @@ _REGISTRY = {
 
 
 def build(name: str, **kwargs):
-    """Construct a model by its reference-compatible name."""
+    """Construct a model by its reference-compatible name, which it keeps
+    as `arch` (checkpoints and weight maps read it)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](**kwargs)
+    net = _REGISTRY[name](**kwargs)
+    net.arch = name
+    return net
 
 
 __all__ = [

@@ -51,13 +51,17 @@ def make_models(cfg: TrainConfig, device: str | torch.device | None = None,
 @dataclasses.dataclass
 class AdamState:
     """Adam's state over the four nets: per net, one first and one second
-    moment for each parameter, in `nets[name].parameters()` order; one step
-    count for all nets; and the number of updates dropped for non-finite
-    gradients. The structure is the same in every --fix-* phase."""
+    moment for each parameter, in `nets[name].parameters()` order; one
+    count of applied updates for all nets; the number of updates dropped
+    for non-finite gradients; and `step`, the number of train steps taken,
+    dropped ones included (cc_tpu's TrainState.step), which
+    build_train_step advances on every call. The structure is the same in
+    every --fix-* phase."""
     mu: dict[str, list[torch.Tensor]]
     nu: dict[str, list[torch.Tensor]]
     count: int = 0
     notfinite: int = 0
+    step: int = 0
 
 
 class Adam:

@@ -218,7 +218,8 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
     (cc_tpu/train/step.py:215-241): returns step(batch) -> metrics, which
     runs the four nets in train mode, the five losses, the backward and
     one Adam update, in place on `nets` (parameters and BatchNorm stats)
-    and `opt_state` (from make_optimizer(cfg).init(nets)). The metrics are
+    and `opt_state` (from make_optimizer(cfg).init(nets)), whose `step`
+    advances on every call, as cc_tpu's TrainState.step. The metrics are
     the six 0-d tensors of cc_tpu's, on the device, not synchronized.
 
     The state carries across phases: build one step per --fix-* config,
@@ -234,6 +235,7 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
         total, metrics = compute_losses(cfg, outputs, batch)
         total.backward()
         optimizer.update(nets, opt_state)
+        opt_state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

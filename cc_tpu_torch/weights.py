@@ -1,5 +1,6 @@
 """Carry weights across from cc_tpu: flax (params, batch_stats) numpy trees
--> reference-format torch state dicts -> the port's nets.
+-> reference-format torch state dicts -> the port's nets; and cc_tpu's
+whole train state, Adam's moments and counts too (load_cc_tpu_state).
 
 The key maps are copies of cc_tpu/train/torch_import.py's converters for the
 slice's nets (the port imports nothing of cc_tpu); the transforms are the
@@ -163,20 +164,32 @@ def _get(tree: dict, path: str) -> np.ndarray:
     return np.asarray(tree)
 
 
+def _mapping(arch: str) -> Mapping:
+    if arch not in _MAPPINGS:
+        raise KeyError(f"no weight mapping for {arch!r}; have {sorted(_MAPPINGS)}")
+    return _MAPPINGS[arch]()
+
+
 def state_dict_from_flax(arch: str, params: dict,
                          batch_stats: dict | None = None) -> dict:
     """flax (params, batch_stats) -> reference torch state dict (numpy)."""
-    if arch not in _MAPPINGS:
-        raise KeyError(f"no weight mapping for {arch!r}; have {sorted(_MAPPINGS)}")
     batch_stats = batch_stats or {}
     sd: dict[str, np.ndarray] = {}
-    for kind, tkey, path in _MAPPINGS[arch]():
+    for kind, tkey, path in _mapping(arch):
         tree = batch_stats if kind in ("bn_mean", "bn_var") else params
         sd[tkey] = _INVERSE[kind](_get(tree, path))
         if kind == "bn_var":
             sd[tkey.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
                 np.asarray(0, dtype=np.int64)
     return sd
+
+
+def params_from_flax(arch: str, tree: dict) -> dict:
+    """A tree shaped as flax params (the params, or Adam's moments of them)
+    -> {torch key: numpy array} of the parameters alone."""
+    return {tkey: _INVERSE[kind](_get(tree, path))
+            for kind, tkey, path in _mapping(arch)
+            if kind not in ("bn_mean", "bn_var")}
 
 
 def load_flax_weights(net: nn.Module, arch: str, params: dict,
@@ -186,3 +199,27 @@ def load_flax_weights(net: nn.Module, arch: str, params: dict,
     net.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                         strict=True)
     return net
+
+
+def load_cc_tpu_state(nets: nn.ModuleDict, opt_state, params: dict,
+                      batch_stats: dict, mu: dict, nu: dict, count, step,
+                      notfinite=0) -> None:
+    """Fill the port's nets and AdamState, in place, from cc_tpu's train
+    state as numpy trees: TrainState.params and .batch_stats, optax's
+    ScaleByAdamState mu, nu and count, TrainState.step, and (with
+    skip_nonfinite_updates) ApplyIfFiniteState.total_notfinite. Each net's
+    architecture is the name models.build gave it; the moments go through
+    the same key maps and layout changes as the parameters."""
+    for name, net in nets.items():
+        arch = net.arch
+        load_flax_weights(net, arch, params[name], batch_stats.get(name))
+        keys = [k for k, _ in net.named_parameters()]
+        with torch.no_grad():
+            for mine, tree in ((opt_state.mu[name], mu[name]),
+                               (opt_state.nu[name], nu[name])):
+                sd = params_from_flax(arch, tree)
+                for t, k in zip(mine, keys):
+                    t.copy_(torch.from_numpy(np.array(sd[k])))
+    opt_state.count = int(count)
+    opt_state.step = int(step)
+    opt_state.notfinite = int(notfinite)

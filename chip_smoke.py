@@ -38,7 +38,27 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
 9. flownetc6_*: phases 5-8 again with FlowNetC6 as F (--flownet
    FlowNetC6), K1 and K1' at P=21, d=2: 2 K1 launches per forward, 2 K1
    and 2 K1' per step, 2 K1 and 0 K1' per fix_flownet step.
-10. kernels: one entry per kernel; its launches, times and bound per run
+10. data_env: what the machine has for the data path, by explicit probes:
+   cv2 (the JPEG decoder of load_image; the phase fails without it), PIL,
+   g++ and OpenCV's headers (so that the C++ data plane builds), and the
+   CPU cores torch sees.
+11. data: a synthetic KITTI-shaped scene folder (832x256 JPEGs, cam.txt,
+   train.txt) through SequenceFolder + train_transform + DataLoader(4
+   threads) + device_prefetch into the Back2Future train step at bench.py's
+   point, with float32 batches and again with uint8 ones: the first
+   prefetched batch against the host's collate (equal bits), 10 K1 and 10
+   K1' launches in one loader-fed step, finite losses; step times fed from
+   a resident batch and from the loader in turns (resident, loader,
+   loader, resident; 5 warm-up steps, then the median of 3 windows of 3
+   steps), the time the loop waited on the iterator and on the loader,
+   decode + augment ms per batch, H2D bytes per step, and the copies per
+   step from a torch.profiler window of one step.
+12. resume: at 128x128, batch 2, two loader-fed steps, a checkpoint, then
+   a step and a fix_flownet step; the same two steps again from the
+   checkpoint loaded into fresh nets under cudnn.deterministic, within the
+   card-vs-CPU tolerances (whether the bits were equal is recorded). Then
+   save and load of the full-size four-net state, timed, with its bytes.
+13. kernels: one entry per kernel; its launches, times and bound per run
    of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -46,21 +66,28 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from cc_tpu_torch.data.loader import DataLoader, collate, device_prefetch
+from cc_tpu_torch.data.native_pipeline import train_pipeline
+from cc_tpu_torch.data.sequence_folders import SequenceFolder
 from cc_tpu_torch.ops import _build
 from cc_tpu_torch.ops import correlation as corr
 from cc_tpu_torch.ops import row_gather as rg
 from cc_tpu_torch.train import (
-    METRICS, NETS, TrainConfig, build_train_step, forward_eval, make_models,
-    make_optimizer,
+    METRICS, NETS, TrainConfig, build_train_step, forward_eval,
+    load_checkpoint, make_models, make_optimizer, save_checkpoint,
 )
 
 ATOL = 1e-5          # correlation kernels vs plain, fp32 sums in another order
@@ -218,12 +245,20 @@ def time_device(fn, n: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def seeded_batch(cfg: TrainConfig, device, seed: int = 0) -> dict:
-    """bench.py:102-112: images uniform in [-1, 1], KITTI-like intrinsics."""
+def seeded_batch(cfg: TrainConfig, device, seed: int = 0,
+                 h2d: str = "float32") -> dict:
+    """bench.py:102-112: images uniform in [-1, 1], KITTI-like intrinsics;
+    with h2d="uint8", images uniform in 0..255 as uint8 (the compact
+    host-to-device mode, normalized on the device)."""
     r = np.random.RandomState(seed)
     b, h, w = cfg.batch_size, cfg.height, cfg.width
-    tgt = r.rand(b, h, w, 3).astype(np.float32) * 2 - 1
-    refs = r.rand(b, cfg.nb_ref_imgs, h, w, 3).astype(np.float32) * 2 - 1
+    if h2d == "uint8":
+        tgt = r.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+        refs = r.randint(0, 256, (b, cfg.nb_ref_imgs, h, w, 3)).astype(
+            np.uint8)
+    else:
+        tgt = r.rand(b, h, w, 3).astype(np.float32) * 2 - 1
+        refs = r.rand(b, cfg.nb_ref_imgs, h, w, 3).astype(np.float32) * 2 - 1
     k = np.array([[w * 0.6, 0, w / 2], [0, h * 1.2, h / 2], [0, 0, 1]],
                  dtype=np.float32)[None].repeat(b, 0)
     batch = {"tgt": tgt, "refs": refs, "intrinsics": k,
@@ -575,6 +610,71 @@ def phase_train(gpu: str, flownet: str):
     return k1, k1b
 
 
+def _state_of(nets, opt_state) -> dict:
+    return {"nets": {k: v.detach().clone() for k, v in
+                     nets.state_dict().items()},
+            "mu": {n: [t.clone() for t in opt_state.mu[n]] for n in NETS},
+            "nu": {n: [t.clone() for t in opt_state.nu[n]] for n in NETS},
+            "counts": (opt_state.count, opt_state.notfinite, opt_state.step)}
+
+
+def compare_train_states(metrics_ref: list[dict], metrics: list[dict],
+                         ref: dict, state: dict, moments=("mu", "nu"),
+                         param_bound: float | None = None
+                         ) -> tuple[dict, list[str]]:
+    """A train run against a reference run (states from _state_of, on any
+    device): each step's metrics within TRAIN_METRIC_RTOL of the
+    reference's; per net, each of `moments` within TRAIN_MU_RTOL of the
+    reference's largest entry of that net, and each parameter within
+    `param_bound` where one is given; BatchNorm running stats within
+    TRAIN_STATS_RTOL of their magnitude; and at most PARAM_MOVED_SHARE of
+    all parameter entries more than 1e-6 apart. Returns the report and the
+    failures."""
+    report = {"metrics": {}, "params": {}, "stats": {},
+              **{g: {} for g in moments}}
+    failures = []
+    moved = total = 0  # parameter entries more than 1e-6 apart, of all
+
+    def check(group, key, err, tol, **more):
+        report[group][key] = {"max_abs_err": err, "tol": tol, **more}
+        if tol is not None and not err <= tol:
+            failures.append(f"{group} {key}: {err} > {tol}")
+
+    for i, (m0, m1) in enumerate(zip(metrics_ref, metrics, strict=True)):
+        for k in METRICS:
+            check("metrics", f"{i}.{k}", abs(m1[k] - m0[k]),
+                  TRAIN_METRIC_RTOL * max(abs(m0[k]), 1e-6))
+    for name in NETS:
+        for group in moments:
+            errs = [(float((b.cpu() - a.cpu()).abs().max()),
+                     float(a.abs().max()))
+                    for a, b in zip(ref[group][name], state[group][name])]
+            worst = max(range(len(errs)), key=lambda i: errs[i][0])
+            check(group, name, errs[worst][0],
+                  TRAIN_MU_RTOL * max(m for _, m in errs), worst_tensor=worst,
+                  worst_tensor_max=errs[worst][1])
+        perr = 0.0
+        for k, v in ref["nets"].items():
+            if not k.startswith(name + ".") or not v.is_floating_point():
+                continue
+            d = (state["nets"][k].cpu() - v.cpu()).abs()
+            if k.endswith(("running_mean", "running_var")):
+                check("stats", k, float(d.max()),
+                      TRAIN_STATS_RTOL * max(1.0, float(v.abs().max())))
+            else:
+                perr = max(perr, float(d.max()))
+                moved += int((d > 1e-6).sum())
+                total += d.numel()
+        check("params", name, perr, param_bound)
+    report["params_moved"] = {"share": moved / total, "moved": moved,
+                              "entries": total,
+                              "max_share": PARAM_MOVED_SHARE}
+    if not moved <= PARAM_MOVED_SHARE * total:
+        failures.append(f"params: {moved} of {total} entries more than "
+                        f"1e-6 apart, above {PARAM_MOVED_SHARE}")
+    return report, failures
+
+
 def phase_train_vs_cpu(flownet: str):
     """One 128x128 batch-2 step with `flownet` as F on the card and on the
     CPU (plain kernels) from the same weights and batch: the metrics, the
@@ -594,53 +694,316 @@ def phase_train_vs_cpu(flownet: str):
                                           for k, v in batch.items()})
         results.append((_finite(m), st, n))
     (m_gpu, st_gpu, _), (m_cpu, st_cpu, _) = results
-
-    report, failures = {"metrics": {}, "mu": {}, "params": {}, "stats": {}}, []
-    moved = total = 0  # parameter entries more than 1e-6 apart, of all
-
-    def check(group, key, err, tol, **more):
-        report[group][key] = {"max_abs_err": err, "tol": tol, **more}
-        if not err <= tol:
-            failures.append(f"{group} {key}: {err} > {tol}")
-
-    for k in METRICS:
-        check("metrics", k, abs(m_gpu[k] - m_cpu[k]),
-              TRAIN_METRIC_RTOL * max(abs(m_cpu[k]), 1e-6))
-    for name in NETS:
-        names = [k for k, _ in nets_cpu[name].named_parameters()]
-        errs = {k: (float((a.cpu() - b).abs().max()), float(b.abs().max()))
-                for k, a, b in zip(names, st_gpu.mu[name], st_cpu.mu[name])}
-        worst = max(errs, key=lambda k: errs[k][0])
-        ref_max = max(m for _, m in errs.values())
-        check("mu", name, errs[worst][0], TRAIN_MU_RTOL * ref_max,
-              worst=worst, worst_tensor_max=errs[worst][1])
-        sd_gpu, sd_cpu = nets[name].state_dict(), nets_cpu[name].state_dict()
-        diffs = [(sd_gpu[k].cpu() - v).abs() for k, v in sd_cpu.items()
-                 if v.is_floating_point()
-                 and not k.endswith(("running_mean", "running_var"))]
-        perr = max(float(d.max()) for d in diffs)
-        moved += sum(int((d > 1e-6).sum()) for d in diffs)
-        total += sum(d.numel() for d in diffs)
-        # Adam's first step is about lr*sign(grad): a near-zero gradient of
-        # the other sign moves a parameter up to 2*lr apart, so this bound
-        # holds whatever the gradients are; the share bound below does not
-        check("params", name, perr, 2 * cfg.lr + 1e-6)
-        for k, v in sd_cpu.items():
-            if k.endswith(("running_mean", "running_var")):
-                check("stats", f"{name}.{k}",
-                      float((sd_gpu[k].cpu() - v).abs().max()),
-                      TRAIN_STATS_RTOL * max(1.0, float(v.abs().max())))
-    report["params_moved"] = {"share": moved / total, "moved": moved,
-                              "entries": total,
-                              "max_share": PARAM_MOVED_SHARE}
-    if not moved <= PARAM_MOVED_SHARE * total:
-        failures.append(f"params: {moved} of {total} entries more than "
-                        f"1e-6 apart, above {PARAM_MOVED_SHARE}")
+    # Adam's first step is about lr*sign(grad): a near-zero gradient of the
+    # other sign moves a parameter up to 2*lr apart, so this bound holds
+    # whatever the gradients are; the share bound does not
+    report, failures = compare_train_states(
+        [m_cpu], [m_gpu], _state_of(nets_cpu, st_cpu), _state_of(nets, st_gpu),
+        moments=("mu",), param_bound=2 * cfg.lr + 1e-6)
     emit({"phase": FLOWNETS[flownet][1] + "train_vs_cpu", "hw": [128, 128],
           "batch": 2, "flownet": flownet,
           "metrics_gpu": m_gpu, "metrics_cpu": m_cpu, **report})
     if failures:
         raise AssertionError(f"{flownet} train step, card vs CPU: "
+                             + "; ".join(failures))
+
+
+def phase_data_env() -> None:
+    """What the machine has for the data path, by explicit probes: cv2
+    (load_image's JPEG decoder, which the data phases need), PIL, g++ and
+    OpenCV's headers where cc_tpu_torch/native's build looks for them
+    (pkg-config's opencv4, or the default include directory), and the CPU
+    cores torch sees."""
+    has = lambda mod: importlib.util.find_spec(mod) is not None
+    pkg_config = (shutil.which("pkg-config") is not None and subprocess.run(
+        ["pkg-config", "--exists", "opencv4"]).returncode == 0)
+    headers = pkg_config or os.path.isfile(
+        "/usr/include/opencv4/opencv2/core.hpp")
+    env = {"phase": "data_env", "cv2": has("cv2"), "PIL": has("PIL"),
+           "gxx": shutil.which("g++") is not None,
+           "opencv_headers": headers, "opencv4_pkg_config": pkg_config,
+           "cpu_cores": len(os.sched_getaffinity(0)),
+           "torch_threads": torch.get_num_threads()}
+    env["native_plane_can_build"] = env["gxx"] and headers
+    emit(env)
+    if not env["cv2"]:
+        raise AssertionError("no cv2 here: load_image has no JPEG decoder")
+
+
+def synthetic_scenes(root: str, h: int, w: int, scenes: int, frames: int):
+    """KITTI-shaped scene folders in the manner of the ETL's output: scenes
+    of `frames` h x w JPEGs, each a window sliding over one smooth random
+    image, with cam.txt; all listed in train.txt. Returns root."""
+    import cv2
+    r = np.random.RandomState(0)
+    names = [f"2011_09_26_drive_{i:04d}_sync_02" for i in range(scenes)]
+    for name in names:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        with open(os.path.join(d, "cam.txt"), "w") as f:
+            f.write(f"{0.87 * w:.1f},0.,{w / 2:.1f},0.,{2.8 * h:.1f},"
+                    f"{h / 2:.1f},0.,0.,1.")
+        base = cv2.GaussianBlur(
+            (r.rand(h + frames, w + 2 * frames, 3) * 255).astype(np.uint8),
+            (21, 21), 8)
+        for i in range(frames):
+            cv2.imwrite(os.path.join(d, f"{i:07d}.jpg"),
+                        base[i:i + h, 2 * i:2 * i + w])
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return root
+
+
+def train_dataset(root: str, cfg: TrainConfig, h2d: str):
+    """(dataset, what feeds it): the scene folders under `root` through the
+    train pipeline of --loader auto, the C++ plane where it builds, named
+    as such."""
+    tf, plane = train_pipeline(emit=h2d, loader="auto")
+    ds = SequenceFolder(root, seed=0, train=True,
+                        sequence_length=cfg.sequence_length, transform=tf)
+    return ds, f"JPEG scene folders, {plane} pipeline"
+
+
+class Epochs:
+    """The loader's batches, epoch after epoch; `seconds` sums the host
+    time spent waiting for them."""
+
+    def __init__(self, loader: DataLoader):
+        self.loader, self.it, self.seconds = loader, iter(loader), 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        t0 = time.perf_counter()
+        try:
+            return next(self.it)
+        except StopIteration:
+            self.it = iter(self.loader)
+            return next(self.it)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def memcpy_breakdown(prof, reps: int) -> dict:
+    """Per step: the device's copies by kind (count and ms), the host's
+    cudaMemcpyAsync calls, and those calls by the outermost and innermost
+    ATen op that issued them."""
+    from torch.autograd import DeviceType
+    per = lambda x: x / reps
+    copies = {e.key: {"calls": per(e.count),
+                      "ms": per(e.self_device_time_total) / 1e3}
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "Memcpy" in e.key}
+    issued: dict[str, float] = {}
+    n_calls = 0
+    for e in prof.events():
+        if e.name != "cudaMemcpyAsync":
+            continue
+        n_calls += 1
+        chain, p = [], e.cpu_parent
+        while p is not None:
+            if p.name.startswith("aten::"):
+                chain.append(p.name)
+            p = p.cpu_parent
+        key = " > ".join(dict.fromkeys([chain[-1], chain[0]])) if chain \
+            else "(no ATen op)"
+        issued[key] = issued.get(key, 0) + 1
+    return {"device_copies": copies, "cudaMemcpyAsync": per(n_calls),
+            "cudaMemcpyAsync_by_op": {k: per(v) for k, v in sorted(
+                issued.items(), key=lambda kv: -kv[1])}}
+
+
+def timed_feed(step, next_batch, source: Epochs | None = None,
+               warmup: int = 5, n: int = 3, windows: int = 3) -> dict:
+    """`warmup` steps, then `windows` windows of `n` steps each ended by a
+    synchronize; the host seconds spent in next_batch() inside them, and
+    the part of those spent waiting for the loader (`source`); the rest
+    is device_prefetch's own: the copy into pinned memory and the copies'
+    launch."""
+    for _ in range(warmup):
+        _finite(step(next_batch()))
+    torch.cuda.synchronize()
+    times, wait = [], 0.0
+    loader0 = source.seconds if source is not None else 0.0
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t1 = time.perf_counter()
+            batch = next_batch()
+            wait += time.perf_counter() - t1
+            step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    return {"ms_per_step": statistics.median(times), "window_ms": times,
+            "iterator_wait_s": wait,
+            "loader_wait_s": (source.seconds - loader0 if source is not None
+                              else 0.0),
+            "steps_timed": windows * n}
+
+
+def phase_data(root: str, h2d: str, gpu: str,
+               profiled=("resident", "loader")) -> tuple[int, int]:
+    """The Back2Future train step at bench.py's point, fed from the scene
+    folders under `root` through DataLoader and device_prefetch, with
+    `h2d` ("float32" or "uint8") batches; one step of each feed in
+    `profiled` under torch.profiler (about 15 s of the host's each).
+    Returns the K1 and K1' launches of one loader-fed step."""
+    t_start = time.perf_counter()
+    cfg = TrainConfig(height=256, width=832, batch_size=B, **BENCH)
+    ds, source = train_dataset(root, cfg, h2d)
+    make_loader = lambda: DataLoader(ds, B, shuffle=True, num_workers=4,
+                                     seed=0)
+
+    # the first prefetched batch against the same batch collated on the host
+    host = next(iter(make_loader()))
+    first = next(device_prefetch(iter(make_loader()), "cuda"))
+    bit_equal = all(np.array_equal(first[k].cpu().numpy(), v)
+                    and first[k].dtype == torch.from_numpy(v).dtype
+                    for k, v in host.items())
+    if not bit_equal or set(first) != set(host):
+        raise AssertionError(f"{h2d}: the prefetched batch differs from "
+                             "the host's")
+    h2d_bytes = sum(v.nbytes for v in host.values())
+
+    # decode + augment on one thread, per batch of B samples
+    per_batch = []
+    for b in range(3):
+        t0 = time.perf_counter()
+        collate([ds[b * B + i] for i in range(B)])
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+
+    nets = make_models(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    opt_state = make_optimizer(cfg).init(nets)
+    step = build_train_step(cfg, nets, opt_state)
+    resident = seeded_batch(cfg, "cuda", h2d=h2d)
+    batches = Epochs(make_loader())
+    fed = device_prefetch(batches, "cuda")
+
+    for _ in range(2):  # cuDNN's set-up, outside the counted step
+        _finite(step(next(fed)))
+    torch.cuda.synchronize()
+    metrics, k1, k1b = _count_step(step, next(fed))
+    values = _finite(metrics)
+    expect = _expect_launches("Back2Future")
+    if (k1, k1b) != (expect, expect):
+        raise AssertionError(f"loader-fed step ({h2d}): {k1} K1 and {k1b} "
+                             f"K1' launches, expected {expect} of each")
+
+    t_runs = time.perf_counter()
+    runs = []
+    for feed in ("resident", "loader", "loader", "resident"):
+        if feed == "resident":
+            row = timed_feed(step, lambda: resident)
+        else:
+            row = timed_feed(step, lambda: next(fed), batches)
+        row["feed"] = feed
+        row["frames_per_s"] = B * 1e3 / row["ms_per_step"]
+        runs.append(row)
+
+    t_profile = time.perf_counter()
+    from torch.profiler import ProfilerActivity, profile
+    memcpy = {}
+    feeds = {"resident": lambda: resident, "loader": lambda: next(fed)}
+    for feed in profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(feeds[feed]())
+            torch.cuda.synchronize()
+        memcpy[feed] = memcpy_breakdown(prof, 1)
+    fed.close()
+    emit({"phase": "data", "h2d": h2d, "source": source,
+          "config": "bench.py:80-112, Back2Future, 832x256 b4",
+          "gpu": gpu, "samples": len(ds), "loader_threads": 4,
+          "first_batch_bit_equal": bit_equal, "k1_launches": k1,
+          "k1b_launches": k1b, "step_metrics": values,
+          "h2d_bytes_per_step": h2d_bytes,
+          "decode_augment_ms_per_batch_one_thread": statistics.median(
+              per_batch), "runs": runs, "memcpy_per_step": memcpy,
+          "seconds": {"set_up_and_checks": t_runs - t_start,
+                      "timed_runs": t_profile - t_runs,
+                      "profiles": time.perf_counter() - t_profile}})
+    del nets, opt_state, step, resident
+    torch.cuda.empty_cache()
+    return k1, k1b
+
+
+def phase_resume(root: str, gpu: str):
+    """Train 2 loader-fed steps at 128x128 b2 and save; then a step and a
+    fix_flownet step. Fresh nets and optimizer (another seed) load the
+    checkpoint and take the same two steps, under cudnn.deterministic. The
+    counts must be equal, and the check is compare_train_states with both
+    moments: grid_sample's backward adds with atomics, so the two runs'
+    bits differ even so; whether they were equal is recorded. Then the
+    full-size state: save and load timed, and its bytes."""
+    cfg = TrainConfig(height=128, width=128, batch_size=2, **BENCH)
+    ds, source = train_dataset(root, cfg, "float32")
+    feed = device_prefetch(iter(DataLoader(ds, 2, shuffle=True, seed=1)),
+                           "cuda")
+    batches = [next(feed) for _ in range(4)]
+    feed.close()
+    phases = (cfg, cfg.replace(fix_flownet=True))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            nets = make_models(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+            opt_state = make_optimizer(cfg).init(nets)
+            for b in batches[:2]:
+                _finite(build_train_step(cfg, nets, opt_state)(b))
+            save_checkpoint(tmp, nets, opt_state)
+            straight = [_finite(build_train_step(c, nets, opt_state)(b))
+                        for c, b in zip(phases, batches[2:])]
+            a = _state_of(nets, opt_state)
+            nets = make_models(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(1))
+            opt_state = make_optimizer(cfg).init(nets)
+            load_checkpoint(tmp, nets, opt_state)
+            resumed = [_finite(build_train_step(c, nets, opt_state)(b))
+                       for c, b in zip(phases, batches[2:])]
+            r = _state_of(nets, opt_state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    tensors = lambda st: ([st["nets"][k] for k in sorted(st["nets"])]
+                          + [t for n in NETS for t in st["mu"][n] + st["nu"][n]])
+    bits = (straight == resumed
+            and all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(r))))
+    report, failures = compare_train_states(straight, resumed, a, r)
+    if a["counts"] != r["counts"] or a["counts"] != (4, 0, 4):
+        failures.append(f"counts {a['counts']} and {r['counts']}")
+
+    # the full-size state: 832x256 nets (their size does not depend on the
+    # frames') with Adam's moments
+    full = TrainConfig(**BENCH)
+    nets = make_models(full, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    opt_state = make_optimizer(full).init(nets)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, nets, opt_state)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        load_checkpoint(tmp, nets, opt_state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    emit({"phase": "resume", "hw": [128, 128], "batch": 2, "source": source,
+          "gpu": gpu, "cudnn_deterministic": True, "equal_bits": bits,
+          "metrics_straight": straight, "metrics_resumed": resumed,
+          "counts": r["counts"], **report,
+          "full_size": {"nets": "DispResNet6+PoseNetB6+MaskNet6+Back2Future",
+                        "parameters": sum(p.numel() for p in
+                                          nets.parameters()),
+                        "bytes": nbytes, "save_s": save_s,
+                        "load_s": load_s}})
+    del nets, opt_state
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("resumed run against the straight one: "
                              + "; ".join(failures))
 
 
@@ -718,6 +1081,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_vs_cpu(flownet)
 
+    phase_data_env()
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {hw: synthetic_scenes(os.path.join(tmp, f"{hw[0]}x{hw[1]}"),
+                                      *hw, scenes=3, frames=12)
+                 for hw in ((256, 832), (128, 128))}
+        loader_step = phase_data(roots[256, 832], "float32", gpu)
+        # the resident step's copies do not depend on the batch's dtype
+        phase_data(roots[256, 832], "uint8", gpu, profiled=("loader",))
+        phase_resume(roots[128, 128], gpu)
+
     n_b2f, n_c6 = len(B2F_CASES), len(C6_CASES)
     corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
     corr_paths = {}
@@ -726,6 +1099,8 @@ def main() -> int:
         corr_paths[kind] = [
             path_entry("Back2Future train step", b2f,
                        launches["Back2Future", "step"][k]),
+            path_entry("Back2Future train step fed by the loader", b2f,
+                       loader_step[k]),
             path_entry("FlowNetC6 train step", c6,
                        launches["FlowNetC6", "step"][k])]
         if kind == "fwd":

@@ -2,6 +2,8 @@
 the correlation forward (K1) and backward (K1'), the autograd Function that
 joins them, and the row gather (K2); and FlowNetC6 through them: its
 gradients on the card against the CPU's, and its train step's launches.
+Besides the kernels: device_prefetch's batches against the host's under a
+busy consumer, and checkpoints moved between the card and the CPU.
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports no JAX, so on a machine without JAX it runs without the
@@ -14,10 +16,13 @@ import pytest
 import torch
 
 from cc_tpu_torch import models
+from cc_tpu_torch.data import loader
+from cc_tpu_torch.data.loader import device_prefetch
 from cc_tpu_torch.ops import correlation as tc
 from cc_tpu_torch.ops import row_gather as rg
 from cc_tpu_torch.train import (
-    TrainConfig, build_train_step, make_models, make_optimizer,
+    NETS, TrainConfig, build_train_step, load_checkpoint, make_models,
+    make_optimizer, save_checkpoint,
 )
 # Imported through tests/ itself, which pytest puts on the path: where an
 # installed package is named `tests`, that package hides tests.torch_port_util.
@@ -299,6 +304,108 @@ def test_flownetc6_train_step_launches(cuda):
                    zip(before, nets["flow"].parameters()))
         assert same == fixed
     assert counts == [(2, 2), (2, 0)]
+
+
+def _host_batch(i: int, dtype) -> dict:
+    """Batch i of a stream, in the train step's layout, from seed i."""
+    r = np.random.RandomState(i)
+    draw = lambda *shape: (r.randint(0, 256, shape).astype(dtype)
+                           if dtype == np.uint8
+                           else r.rand(*shape).astype(dtype))
+    k = r.rand(4, 3, 3).astype(np.float32)
+    return {"tgt": draw(4, 128, 416, 3), "refs": draw(4, 4, 128, 416, 3),
+            "intrinsics": k, "intrinsics_inv": k + 1}
+
+
+def _spin(ms: float):
+    """Keep the current stream busy for at least `ms` (cycles at 2 GHz, an
+    H100's highest clock or above)."""
+    torch.cuda._sleep(int(ms * 2_000_000))
+
+
+# (side stream's delay before each batch's copies, consumer stream's spin
+# before it reads each batch), in ms. "reuse": copies run ahead of reads
+# that are still queued, so a pinned buffer refilled before its copy ran,
+# or device memory handed to the next copy while the consumer's read of it
+# is queued, shows in a batch. "wait": the copies come after the consumer
+# would read at once, so a read that does not wait for its copy shows.
+PREFETCH_TIMING = {"reuse": (5.0, 20.0), "wait": (20.0, 0.0)}
+
+
+@pytest.mark.parametrize("timing", sorted(PREFETCH_TIMING))
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_device_prefetch_batches_equal_the_hosts_under_a_busy_consumer(
+        cuda, dtype, timing, monkeypatch):
+    """50 batches, drawn beforehand so that they are put back to back,
+    through the smallest ring (size 1: two pinned buffers). The side stream
+    is held back before each batch's copies, and the consumer's stream spins
+    before it reads each batch; each batch is dropped once read. Each
+    batch's copy, read at once and read after the spin, must equal the
+    host's bits."""
+    side_ms, consumer_ms = PREFETCH_TIMING[timing]
+    stage = loader._PinnedSlot.stage
+
+    def held_back_stage(slot, batch):
+        host = stage(slot, batch)
+        # staged under the side stream: delay its copies
+        assert torch.cuda.current_stream() != torch.cuda.default_stream()
+        _spin(side_ms)
+        return host
+
+    monkeypatch.setattr(loader._PinnedSlot, "stage", held_back_stage)
+    n = 50
+    host = [_host_batch(i, dtype) for i in range(n)]
+    copies = []
+    for batch in device_prefetch(iter(host), cuda, size=1):
+        assert all(t.device.type == "cuda" for t in batch.values())
+        first = {k: v.clone() for k, v in batch.items()}
+        _spin(consumer_ms)
+        copies.append((first, {k: v.clone() for k, v in batch.items()}))
+        del batch
+    torch.cuda.synchronize()
+    assert len(copies) == n
+    for i, got in enumerate(copies):
+        for k, v in host[i].items():
+            for when, c in zip(("at once", "after the spin"), got):
+                mine = c[k].cpu().numpy()
+                assert mine.dtype == v.dtype and np.array_equal(mine, v), \
+                    (i, k, when)
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A checkpoint saved from nets on the card loads into nets on the CPU
+    and the other way round, every tensor and count equal."""
+    cfg = TrainConfig(height=128, width=128, batch_size=2)
+
+    def state(device, seed):
+        nets = make_models(cfg, device=device,
+                           generator=torch.Generator().manual_seed(seed))
+        opt_state = make_optimizer(cfg).init(nets)
+        gen = torch.Generator().manual_seed(seed)
+        for n in NETS:
+            for t in opt_state.mu[n] + opt_state.nu[n]:
+                t.copy_(torch.rand(t.shape, generator=gen))
+        opt_state.count, opt_state.notfinite, opt_state.step = seed, 1, 7
+        return nets, opt_state
+
+    def same(a, b):
+        (na, sa), (nb, sb) = a, b
+        assert all(torch.equal(x.cpu(), y.cpu()) for x, y in
+                   zip(na.state_dict().values(), nb.state_dict().values()))
+        for n in NETS:
+            assert all(torch.equal(x.cpu(), y.cpu()) for x, y in
+                       zip(sa.mu[n] + sa.nu[n], sb.mu[n] + sb.nu[n]))
+        assert (sa.count, sa.notfinite, sa.step) == \
+            (sb.count, sb.notfinite, sb.step)
+
+    for src, dst in ((cuda, "cpu"), ("cpu", cuda)):
+        saved = state(src, 3)
+        path = save_checkpoint(str(tmp_path / str(src)), *saved)
+        loaded = state(dst, 4)
+        load_checkpoint(path, *loaded)
+        assert next(loaded[0].parameters()).device.type == \
+            torch.device(dst).type
+        same(saved, loaded)
 
 
 if __name__ == "__main__":

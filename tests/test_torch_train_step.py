@@ -29,13 +29,16 @@ from cc_tpu.train import build_train_step as jax_build_train_step
 from cc_tpu.train.step import forward_all as jax_forward_all
 from cc_tpu.train import init_state, make_models as jax_make_models
 from cc_tpu.train.state import TrainState, make_optimizer as jax_make_optimizer
+from cc_tpu.train.torch_export import export_state_dict
 from cc_tpu_torch.models.layers import BatchNorm2d
 from cc_tpu_torch.train import (
     METRICS, NETS, TrainConfig, build_train_step, forward_eval, make_models,
     make_optimizer,
 )
 from cc_tpu_torch.train.step import forward_all
-from cc_tpu_torch.weights import load_flax_weights, state_dict_from_flax
+from cc_tpu_torch.weights import (
+    load_cc_tpu_state, load_flax_weights, state_dict_from_flax,
+)
 from tests.test_train_step import synth_batch, tiny_config
 from tests.torch_port_util import assert_close, draw_flax_variables
 
@@ -172,6 +175,37 @@ def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
                 n_far += int((np.abs(t.numpy() - e) > 1e-6).sum())
                 n_all += e.size
     assert n_far <= PARAM_MOVED_SHARE * n_all, (n_far, n_all)
+
+
+def test_cc_tpu_state_carries_into_the_port(jax_step):
+    """cc_tpu's whole state after its step, as numpy trees, into the port's
+    nets and AdamState (load_cc_tpu_state, over nets that hold other
+    weights): every parameter, BatchNorm stat and moment equals cc_tpu's own
+    export of those trees to the reference's layout (export_state_dict) bit
+    for bit, and the counts are cc_tpu's."""
+    jcfg, params, stats, _, new_state, _ = jax_step
+    cfg, nets = _port(jcfg, params, stats)
+    opt_state = make_optimizer(cfg).init(nets)
+    adam = _adam_state(new_state.opt_state)
+    load_cc_tpu_state(nets, opt_state, new_state.params,
+                      new_state.batch_stats, adam.mu, adam.nu, adam.count,
+                      new_state.step)
+    assert (opt_state.count, opt_state.step, opt_state.notfinite) == (1, 1, 0)
+    for name, arch in _archs(jcfg).items():
+        bn = new_state.batch_stats[name]
+        ref = export_state_dict(arch, new_state.params[name], bn)
+        mine = nets[name].state_dict()
+        assert set(mine) == set(ref)
+        for k, t in mine.items():
+            assert t.dtype == torch.from_numpy(np.asarray(ref[k])).dtype, k
+            assert np.array_equal(t.numpy(), ref[k]), f"{name}.{k}"
+        keys = {k for k, _ in nets[name].named_parameters()}
+        for group, tree in (("mu", adam.mu), ("nu", adam.nu)):
+            ref = export_state_dict(arch, tree[name], bn)
+            moments = _by_name(nets[name], getattr(opt_state, group)[name])
+            assert set(moments) == keys and keys <= set(ref)
+            for k, t in moments.items():
+                assert np.array_equal(t.numpy(), ref[k]), f"{group} {name}.{k}"
 
 
 def test_frozen_phase_step(jax_step):
