@@ -5,16 +5,19 @@ from cc_tpu_torch.models.dispnet import (
     DispNet, DispNetS, DispNetS6, DispResNet6, DispResNetS6,
 )
 from cc_tpu_torch.models.flownetc import FlowNetC6
-from cc_tpu_torch.models.masknet import MaskNet6
-from cc_tpu_torch.models.posenet import PoseNetB6
+from cc_tpu_torch.models.masknet import MaskNet6, MaskResNet6
+from cc_tpu_torch.models.posenet import PoseExpNet, PoseNet6, PoseNetB6
 
 _REGISTRY = {
     "DispNetS": DispNetS,
     "DispNetS6": DispNetS6,
     "DispResNet6": DispResNet6,
     "DispResNetS6": DispResNetS6,
+    "PoseNet6": PoseNet6,
     "PoseNetB6": PoseNetB6,
+    "PoseExpNet": PoseExpNet,
     "MaskNet6": MaskNet6,
+    "MaskResNet6": MaskResNet6,
     "Back2Future": Back2Future,
     "FlowNetC6": FlowNetC6,
 }
@@ -32,6 +35,6 @@ def build(name: str, **kwargs):
 
 __all__ = [
     "build", "DispNet", "DispNetS", "DispNetS6", "DispResNet6",
-    "DispResNetS6", "PoseNetB6", "MaskNet6", "Back2Future",
-    "FlowNetC6",
+    "DispResNetS6", "PoseNet6", "PoseNetB6", "PoseExpNet", "MaskNet6",
+    "MaskResNet6", "Back2Future", "FlowNetC6",
 ]

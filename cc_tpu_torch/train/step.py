@@ -64,11 +64,21 @@ def _nhwc_all(x):
     return _nhwc(x)
 
 
-def _check_ported(cfg: TrainConfig) -> None:
+def check_ported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError for a configuration the port does not run:
+    bf16, a flow net other than FLOWNETS, or PoseExpNet as C, whose
+    (masks, pose) output cc_tpu's step passes on as the pose
+    (cc_tpu/train/step.py:66-67) and then indexes as one (:145), so that
+    cc_tpu cannot train or evaluate with it either."""
     if cfg.compute_dtype != "float32" or cfg.loss_dtype != "float32":
         raise NotImplementedError("only float32 is ported so far")
     if cfg.flownet not in FLOWNETS:
         raise NotImplementedError(f"flownet {cfg.flownet!r} is not ported yet")
+    if cfg.posenet == "PoseExpNet":
+        raise NotImplementedError(
+            "PoseExpNet as the pose net C: it returns (masks, pose), which "
+            "cc_tpu's train step takes as the pose and fails on; neither "
+            "package trains or evaluates with it")
 
 
 def forward_all(cfg: TrainConfig, nets: nn.ModuleDict, batch: dict,
@@ -76,7 +86,7 @@ def forward_all(cfg: TrainConfig, nets: nn.ModuleDict, batch: dict,
     """Run all four nets on the device of their parameters. Returns NHWC
     outputs; in training mode the per-scale outputs are lists. FlowNetC6
     gives no occlusion: `occ` is None."""
-    _check_ported(cfg)
+    check_ported(cfg)
     device = next(nets.parameters()).device
     nets.train(training)
     tgt = _device_normalize(torch.as_tensor(batch["tgt"]).to(device))
@@ -225,7 +235,7 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
     The state carries across phases: build one step per --fix-* config,
     all on the same nets and opt_state.
     """
-    _check_ported(cfg)
+    check_ported(cfg)
     optimizer = make_optimizer(cfg)
 
     def step(batch: dict) -> dict:

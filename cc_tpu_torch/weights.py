@@ -1,6 +1,8 @@
 """Carry weights across from cc_tpu: flax (params, batch_stats) numpy trees
--> reference-format torch state dicts -> the port's nets; and cc_tpu's
-whole train state, Adam's moments and counts too (load_cc_tpu_state).
+-> reference-format torch state dicts -> the port's nets; cc_tpu's whole
+train state, Adam's moments and counts too (load_cc_tpu_state); and the
+reference's own .pth.tar checkpoints, the train CLI's --pretrained-*
+(load_pretrained), whose keys are the port's parameter names already.
 
 The key maps are copies of cc_tpu/train/torch_import.py's converters for the
 slice's nets (the port imports nothing of cc_tpu); the transforms are the
@@ -17,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from cc_tpu_torch import models
 
 # (kind, torch key, flax path) triples of one architecture
 Mapping = list[tuple[str, str, str]]
@@ -89,18 +93,37 @@ def _dispnet(variant: str) -> Mapping:
     return w.entries
 
 
-def _posenet_b6() -> Mapping:
+def _posenet(variant: str, output_exp: bool = False) -> Mapping:
     w = _Recorder()
-    for i in range(1, 9):
-        w.conv(f"conv{i}.0", f"ConvReLU_{i - 1}/Conv_0/Conv_0")
+    if variant == "PoseNetB6":
+        for i in range(1, 9):
+            w.conv(f"conv{i}.0", f"ConvReLU_{i - 1}/Conv_0/Conv_0")
+    elif variant == "PoseNet6":
+        for i in range(0, 8):
+            w.conv(f"conv{i}.0", f"ConvReLU_{i}/Conv_0/Conv_0")
+    else:  # PoseExpNet
+        for i in range(1, 8):
+            w.conv(f"conv{i}.0", f"ConvReLU_{i - 1}/Conv_0/Conv_0")
     w.conv("pose_pred", "Conv_0/Conv_0")
+    if output_exp:  # PoseExpNet's optional mask decoder
+        for j, lev in enumerate(range(5, 0, -1)):
+            w.tconv(f"upconv{lev}.0", f"Upconv4ReLU_{j}/ConvTranspose_0")
+        for k, lev in enumerate((4, 3, 2, 1)):
+            w.conv(f"predict_mask{lev}", f"Conv_{k + 1}/Conv_0")
     return w.entries
 
 
-def _masknet6() -> Mapping:
+def _masknet(variant: str) -> Mapping:
     w = _Recorder()
-    for i in range(1, 7):
-        w.conv(f"conv{i}.0", f"ConvReLU_{i - 1}/Conv_0/Conv_0")
+    if variant == "MaskNet6":
+        for i in range(1, 7):
+            w.conv(f"conv{i}.0", f"ConvReLU_{i - 1}/Conv_0/Conv_0")
+    else:  # MaskResNet6
+        planes = [16, 32, 64, 128, 256, 256]
+        w.conv("conv1.0", "ConvReLU_0/Conv_0/Conv_0")
+        for i in range(2, 7):
+            _res_layer(w, f"conv{i}", f"ResLayer_{i - 2}", 2, planes[i - 2],
+                       planes[i - 1], 2)
     for j, lev in enumerate(range(6, 0, -1)):
         w.tconv(f"deconv{lev}.0", f"Upconv4ReLU_{j}/ConvTranspose_0")
     for k in range(6):
@@ -142,8 +165,11 @@ _MAPPINGS = {
     "DispNetS6": lambda: _dispnet("DispNetS6"),
     "DispResNet6": lambda: _dispnet("DispResNet6"),
     "DispResNetS6": lambda: _dispnet("DispResNetS6"),
-    "PoseNetB6": _posenet_b6,
-    "MaskNet6": _masknet6,
+    "PoseNet6": lambda: _posenet("PoseNet6"),
+    "PoseNetB6": lambda: _posenet("PoseNetB6"),
+    "PoseExpNet": lambda output_exp=False: _posenet("PoseExpNet", output_exp),
+    "MaskNet6": lambda: _masknet("MaskNet6"),
+    "MaskResNet6": lambda: _masknet("MaskResNet6"),
     "Back2Future": _back2future,
     "FlowNetC6": _flownetc6,
 }
@@ -164,9 +190,13 @@ def _get(tree: dict, path: str) -> np.ndarray:
     return np.asarray(tree)
 
 
-def _mapping(arch: str) -> Mapping:
+def _mapping(arch: str, params: dict) -> Mapping:
+    """The map of `arch`; PoseExpNet's includes the mask decoder when the
+    flax tree `params` has one (cc_tpu's export probes the same way)."""
     if arch not in _MAPPINGS:
         raise KeyError(f"no weight mapping for {arch!r}; have {sorted(_MAPPINGS)}")
+    if arch == "PoseExpNet":
+        return _MAPPINGS[arch]("Upconv4ReLU_0" in params)
     return _MAPPINGS[arch]()
 
 
@@ -175,7 +205,7 @@ def state_dict_from_flax(arch: str, params: dict,
     """flax (params, batch_stats) -> reference torch state dict (numpy)."""
     batch_stats = batch_stats or {}
     sd: dict[str, np.ndarray] = {}
-    for kind, tkey, path in _mapping(arch):
+    for kind, tkey, path in _mapping(arch, params):
         tree = batch_stats if kind in ("bn_mean", "bn_var") else params
         sd[tkey] = _INVERSE[kind](_get(tree, path))
         if kind == "bn_var":
@@ -188,7 +218,7 @@ def params_from_flax(arch: str, tree: dict) -> dict:
     """A tree shaped as flax params (the params, or Adam's moments of them)
     -> {torch key: numpy array} of the parameters alone."""
     return {tkey: _INVERSE[kind](_get(tree, path))
-            for kind, tkey, path in _mapping(arch)
+            for kind, tkey, path in _mapping(arch, tree)
             if kind not in ("bn_mean", "bn_var")}
 
 
@@ -223,3 +253,56 @@ def load_cc_tpu_state(nets: nn.ModuleDict, opt_state, params: dict,
     opt_state.count = int(count)
     opt_state.step = int(step)
     opt_state.notfinite = int(notfinite)
+
+
+def read_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """The state dict of a reference .pth.tar ({'epoch', 'state_dict'}, or
+    a bare state dict), with the first "module." of each key (a
+    DataParallel prefix) taken out, as cc_tpu's importer does
+    (torch_import.py:221). Loaded with weights_only: tensors and plain
+    containers, no other pickled objects."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.replace("module.", "", 1): v for k, v in sd.items()}
+
+
+def load_reference_weights(net: nn.Module, sd: dict[str, torch.Tensor],
+                           what: str = "net") -> nn.Module:
+    """Load a reference state dict into a port net, strict. BatchNorm's
+    num_batches_tracked, which torch >= 0.4.1 writes and cc_tpu's importer
+    never reads, is dropped: the net keeps its own. Any other missing or
+    unexpected key, or a shape that differs, raises ValueError naming
+    `what` and the architecture."""
+    nbt = ".num_batches_tracked"
+    own = {k: v for k, v in net.state_dict().items() if k.endswith(nbt)}
+    sd = {k: v for k, v in sd.items() if not k.endswith(nbt)} | own
+    try:
+        net.load_state_dict(sd, strict=True)
+    except RuntimeError as e:
+        raise ValueError(f"{what}: the checkpoint does not fit "
+                         f"{net.arch}: {e}") from e
+    return net
+
+
+def load_pretrained(nets: nn.ModuleDict,
+                    paths: dict[str, str | None]) -> None:
+    """The train CLI's --pretrained-{disp,pose,mask,flow}: load each given
+    reference checkpoint into nets[name], in place. PoseExpNet is rebuilt
+    with or without its mask decoder as the checkpoint has one (probed by
+    an upconv5 key, torch_import.py:139-146), on the same device and in
+    the same mode."""
+    for name, path in paths.items():
+        if path is None:
+            continue
+        print(f"=> loading pretrained torch weights for {name} from {path}")
+        sd = read_reference_checkpoint(path)
+        net = nets[name]
+        if net.arch == "PoseExpNet":
+            output_exp = any(k.startswith("upconv5") for k in sd)
+            if output_exp != net.output_exp:
+                device = next(net.parameters()).device
+                net = models.build("PoseExpNet", nb_ref_imgs=net.nb_ref_imgs,
+                                   output_exp=output_exp)
+                net = net.to(device).train(nets[name].training)
+                nets[name] = net
+        load_reference_weights(net, sd, f"--pretrained-{name} {path}")

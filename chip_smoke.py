@@ -58,7 +58,19 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    checkpoint loaded into fresh nets under cudnn.deterministic, within the
    card-vs-CPU tolerances (whether the bits were equal is recorded). Then
    save and load of the full-size four-net state, timed, with its bytes.
-13. kernels: one entry per kernel; its launches, times and bound per run
+13. train_cli: the train CLI (cc_tpu_torch.cli.train.main) in-process, in
+   a temporary directory: Back2Future at bench.py's point for 2 epochs
+   with flow validation (a synthetic KITTI 2015 tree of 1242x375 frames),
+   depth validation (a val.txt scene with .npy depths) and training
+   images every 3 steps; the same with --resume --fix-flownet for an
+   epoch; and DispNetS, PoseNet6, MaskResNet6 and FlowNetC6 for an epoch
+   of 2 steps. Each run's K1 and K1' launches against what its steps,
+   training-image forwards and validation forwards imply, finite losses
+   and errors, its checkpoints loaded back, F bit-equal across the
+   --fix-flownet run and every net moved in the last; seconds per epoch,
+   the im/s the CLI printed beside the train phase's resident step,
+   validation ms per item, checkpoint seconds and bytes.
+14. kernels: one entry per kernel; its launches, times and bound per run
    of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -79,6 +91,7 @@ import time
 import numpy as np
 import torch
 
+from cc_tpu_torch.cli import train as train_cli
 from cc_tpu_torch.data.loader import DataLoader, collate, device_prefetch
 from cc_tpu_torch.data.native_pipeline import train_pipeline
 from cc_tpu_torch.data.sequence_folders import SequenceFolder
@@ -100,6 +113,9 @@ B2F_CASES = [((B, *s), 9, 1) for s in MAIN_SHAPES]
 # FlowNetC6's correlation input at 832x256: conv3's [B,32,104,256]
 C6_CASES = [((B, 32, 104, 256), 21, 2)]
 RAGGED_CASES = [((2, 5, 7, 3), 9, 1)]
+# the train CLI's flow validation runs the forward at batch 1
+B1_CASES = {"Back2Future": [((1, *s), 9, 1) for s in MAIN_SHAPES],
+            "FlowNetC6": [((1, 32, 104, 256), 21, 2)]}
 # per run of a path, K1 and K1' launch twice at each of its shapes:
 # Back2Future's forward and backward streams at each level, FlowNetC6's
 # two calls of F (tgt with refs[2], tgt with refs[1])
@@ -270,6 +286,8 @@ def phase_correlation(bw, flops, backward: bool):
     """K1 (backward=False) or K1' against its plain version."""
     gen = torch.Generator(device="cuda").manual_seed(1 if backward else 0)
     cases = B2F_CASES + C6_CASES + RAGGED_CASES
+    if not backward:
+        cases = cases + B1_CASES["Back2Future"] + B1_CASES["FlowNetC6"]
     name = "correlation_backward" if backward else "correlation_forward"
     rows = []
     for shape, patch, dil in cases:
@@ -556,7 +574,8 @@ def phase_train(gpu: str, flownet: str):
     its launches, its frozen phase, and its timing and profile. The
     warm-up losses are reported, not held to fall: with FlowNetC6 they
     rise after the first step, in cc_tpu as in the port (see
-    tests/test_torch_train_step.py, run as a script)."""
+    tests/test_torch_train_step.py, run as a script). Returns the K1 and
+    K1' launches of one step and the resident step's median ms."""
     prefix = FLOWNETS[flownet][1]
     cfg = TrainConfig(height=256, width=832, batch_size=B, flownet=flownet,
                       **BENCH)
@@ -607,7 +626,7 @@ def phase_train(gpu: str, flownet: str):
                           "k1b_launches": f_k1b,
                           "flow_params_bit_equal": flow_equal},
           "adam_count": opt_state.count})
-    return k1, k1b
+    return (k1, k1b), ms
 
 
 def _state_of(nets, opt_state) -> dict:
@@ -1007,15 +1026,248 @@ def phase_resume(root: str, gpu: str):
                              + "; ".join(failures))
 
 
+def add_depth_val_scene(root: str, h: int, w: int, frames: int) -> None:
+    """One more scene under `root`, of `frames` h x w JPEGs each with a
+    .npy depth map (uniform in 1..80 m), listed in val.txt: the depth
+    validation set (ValidationSet) of the train CLI's --with-depth-gt."""
+    import cv2
+    r = np.random.RandomState(1)
+    name = "2011_09_26_drive_val_sync_02"
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    base = cv2.GaussianBlur(
+        (r.rand(h + frames, w + 2 * frames, 3) * 255).astype(np.uint8),
+        (21, 21), 8)
+    for i in range(frames):
+        cv2.imwrite(os.path.join(d, f"{i:07d}.jpg"),
+                    base[i:i + h, 2 * i:2 * i + w])
+        np.save(os.path.join(d, f"{i:07d}.npy"),
+                r.uniform(1, 80, (h, w)).astype(np.float32))
+    with open(os.path.join(root, "val.txt"), "w") as f:
+        f.write(name + "\n")
+
+
+def synthetic_kitti2015(root: str, items: int, h: int = 375,
+                        w: int = 1242) -> str:
+    """A KITTI 2015 training tree of `items` items at KITTI's frame size:
+    multiview frames 08-12 (smooth random PNGs), 16-bit flow_occ PNGs
+    (flow within +-30 px, 70 % valid), obj_map and the calibration's
+    P_rect_02. Returns root."""
+    import cv2
+    from cc_tpu_torch.utils.flow_io import flow_write_png
+    r = np.random.RandomState(2)
+    mv = os.path.join(root, "data_scene_flow_multiview", "training",
+                      "image_2")
+    occ = os.path.join(root, "data_scene_flow", "training", "flow_occ")
+    obj = os.path.join(root, "data_scene_flow", "training", "obj_map")
+    cal = os.path.join(root, "data_scene_flow_calib", "training",
+                       "calib_cam_to_cam")
+    for d in (mv, occ, obj, cal):
+        os.makedirs(d)
+    p_rect = [721.5, 0, w / 2, 44.9, 0, 721.5, h / 2, 0.2, 0, 0, 1, 0.003]
+    for i in range(items):
+        i6 = f"{i:06d}"
+        base = cv2.GaussianBlur(
+            (r.rand(h + 10, w + 20, 3) * 255).astype(np.uint8), (21, 21), 8)
+        for k, f in enumerate(range(8, 13)):
+            cv2.imwrite(os.path.join(mv, f"{i6}_{f:02d}.png"),
+                        base[k:k + h, 2 * k:2 * k + w])
+        u = np.round(r.uniform(-30, 30, (h, w)) * 64) / 64
+        v = np.round(r.uniform(-30, 30, (h, w)) * 64) / 64
+        flow_write_png(os.path.join(occ, f"{i6}_10.png"), u, v,
+                       (r.rand(h, w) > 0.3).astype(np.uint16))
+        cv2.imwrite(os.path.join(obj, f"{i6}_10.png"),
+                    r.randint(0, 3, (h, w)).astype(np.uint8))
+        with open(os.path.join(cal, f"{i6}.txt"), "w") as f:
+            f.write("P_rect_02: " + " ".join(f"{v:e}" for v in p_rect)
+                    + "\n")
+    return root
+
+
+def _cli_expected(flownet: str, steps: int, f_freq: int, val_items: int,
+                  f_trains: bool) -> tuple[int, int, int]:
+    """The K1 and K1' launches a CLI run implies, and its training-image
+    forwards: each step and each eval forward (a training-image one every
+    f_freq steps, and one per flow-validation item) launch K1 as their
+    flow net does; each step launches K1' as often while F trains."""
+    per = _expect_launches(flownet)
+    outputs = sum(n % f_freq == 0 for n in range(steps)) if f_freq else 0
+    return (per * (steps + outputs + val_items),
+            per * steps if f_trains else 0, outputs)
+
+
+def _cli_run(name: str, argv: list[str], flownet: str, val_n: int,
+             depth_n: int, f_freq: int, f_trains: bool, gpu: str,
+             step_ms: float) -> dict:
+    """One run of the CLI, the launch counts set to 0 just before it, with
+    val_n flow-validation items and depth_n depth-validation frames an
+    epoch: checks its launches, finite losses and errors, and its
+    checkpoint files, which must load. Returns its JSON line."""
+    corr.launches = corr.backward_launches = 0
+    t0 = time.perf_counter()
+    records = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k1b = corr.launches, corr.backward_launches
+    steps = sum(r["steps"] for r in records)
+    val_items = val_n * len(records)
+    e_k1, e_k1b, outputs = _cli_expected(flownet, steps, f_freq, val_items,
+                                         f_trains)
+    failures = []
+    if (k1, k1b) != (e_k1, e_k1b):
+        failures.append(f"{k1} K1 and {k1b} K1' launches, expected {e_k1} "
+                        f"and {e_k1b}")
+    for r in records:
+        values = [r["train_loss"], *(r["flow_errors"] or []),
+                  *(r["depth_errors"] or [])]
+        if not all(np.isfinite(values)):
+            failures.append(f"epoch {r['epoch']}: non-finite {values}")
+    save = os.path.join("checkpoints", argv[argv.index("--name") + 1])
+    files = {}
+    for fn in ("checkpoint.pt", "best.pt"):
+        path = os.path.join(save, fn)
+        if not os.path.isfile(path):
+            failures.append(f"no {path}")
+            continue
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        files[fn] = {"bytes": os.path.getsize(path), "step": state["step"]}
+    if failures:
+        raise AssertionError(f"train CLI {name}: " + "; ".join(failures))
+    per_epoch = lambda key: [r["seconds"][key] for r in records]
+    batch = int(argv[argv.index("-b") + 1])
+    return {"phase": "train_cli", "run": name, "gpu": gpu,
+            "argv": " ".join(argv), "seconds": seconds,
+            "epochs": len(records), "steps": steps,
+            "training_image_forwards": outputs,
+            "flow_validation_items": val_items,
+            "k1_launches": k1, "k1b_launches": k1b,
+            "expected_k1": e_k1, "expected_k1b": e_k1b,
+            "train_losses": [r["train_loss"] for r in records],
+            "flow_errors": [r["flow_errors"] for r in records],
+            "depth_errors": [r["depth_errors"] for r in records],
+            "decisive": [r["decisive"] for r in records],
+            "epoch_train_s": per_epoch("train"),
+            "im_per_s_printed": [r["im_per_s_printed"] for r in records],
+            "train_phase_resident_step_ms": step_ms,
+            "train_phase_im_per_s": batch * 1e3 / step_ms,
+            "flow_validation_ms_per_item": [
+                1e3 * t / val_n for t in per_epoch("flow_validation")]
+            if val_n else None,
+            "depth_validation_ms_per_frame": [
+                1e3 * t / depth_n for t in per_epoch("depth_validation")]
+            if depth_n else None,
+            "checkpoint_s": per_epoch("checkpoint"), "files": files}
+
+
+def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
+    """The train CLI in-process, in a temporary working directory: three
+    runs over the scene folders under `root` (832x256 JPEGs with train.txt
+    and val.txt) and a synthetic KITTI 2015 tree. Back2Future at bench.py's
+    point, 2 epochs with both validations and training images; the same
+    resumed with --fix-flownet for an epoch; DispNetS + PoseNet6 +
+    MaskResNet6 + FlowNetC6 for an epoch of 2 steps with flow validation.
+    The depth validation set is the 8 frames of add_depth_val_scene.
+    Returns {run: (K1, K1', steps, training-image forwards, validation
+    items), each per epoch}."""
+    has = lambda mod: importlib.util.find_spec(mod) is not None
+    bench = lambda k: str(BENCH[k])
+    cwd = os.getcwd()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = synthetic_kitti2015(os.path.join(tmp, "kitti2015"), 4)
+        os.makedirs(os.path.join(tmp, "run"))
+        os.chdir(os.path.join(tmp, "run"))
+        try:
+            base = [root, "--height", "256", "--width", "832", "-b", str(B),
+                    "-pc", bench("cam_photo_loss_weight"),
+                    "-m", bench("mask_loss_weight"),
+                    "-s", bench("smooth_loss_weight"),
+                    "-pf", bench("flow_photo_loss_weight"),
+                    "-c", bench("consensus_loss_weight"),
+                    "-wssim", bench("wssim"), "--lr", bench("lr"),
+                    "--smoothness-type", BENCH["smoothness_type"],
+                    "-j", "4", "--kitti-dir", kitti, "--seed", "0"]
+            b2f = base + ["--name", "b2f", "--epoch-size", "3",
+                          "--with-depth-gt", "--with-flow-gt",
+                          "--val-flow-N", "4", "-f", "3", "--log-output",
+                          "--print-freq", "2"]
+            rows.append(_cli_run("Back2Future", b2f + ["--epochs", "2"],
+                                 "Back2Future", 4, 8, 3, True, gpu,
+                                 step_ms["Back2Future"]))
+            load = lambda name: torch.load(
+                f"checkpoints/{name}/checkpoint.pt", map_location="cpu",
+                weights_only=True)
+            first = load("b2f")
+            rows.append(_cli_run("Back2Future --resume --fix-flownet",
+                                 b2f + ["--epochs", "1", "--resume",
+                                        "--fix-flownet"],
+                                 "Back2Future", 4, 8, 3, False, gpu,
+                                 step_ms["Back2Future"]))
+            second = load("b2f")
+            flow_equal = all(
+                torch.equal(first[g]["flow"][k], second[g]["flow"][k])
+                for g in ("nets", "mu", "nu") for k in first[g]["flow"])
+            rows[-1].update(flow_bit_equal_to_run_1=flow_equal,
+                            steps_before_after=[first["step"],
+                                                second["step"]])
+            if not flow_equal or second["step"] != first["step"] + 3:
+                raise AssertionError(
+                    f"--resume --fix-flownet: F bit-equal {flow_equal}, "
+                    f"step {first['step']} -> {second['step']}")
+            del first, second
+
+            # DispNetS predicts 4 scales and M 6: the consensus loss takes
+            # one of each per scale and asserts as many (in cc_tpu and the
+            # reference alike), so this run trains without it (-c 0)
+            nets = dict(dispnet="DispNetS", posenet="PoseNet6",
+                        masknet="MaskResNet6", flownet="FlowNetC6")
+            rows.append(_cli_run(
+                "+".join(nets.values()),
+                base + [a for k, v in nets.items() for a in (f"--{k}", v)]
+                + ["-c", "0", "--name", "others", "--epochs", "1",
+                   "--epoch-size", "2", "--with-flow-gt", "--val-flow-N",
+                   "2", "--print-freq", "1"],
+                "FlowNetC6", 2, 0, 0, True, gpu, step_ms["FlowNetC6"]))
+            # the CLI's init is make_models' from --seed 0, on the CPU
+            init = make_models(TrainConfig(**nets), device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+            trained = load("others")["nets"]
+            moved = {n: any(not torch.equal(p, trained[n][k])
+                            for k, p in init[n].named_parameters())
+                     for n in NETS}
+            rows[-1]["every_net_moved"] = moved
+            if not all(moved.values()):
+                raise AssertionError(f"nets that did not train: {moved}")
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    launches = {}
+    for key, row in zip(("Back2Future", "Back2Future fix_flownet",
+                         "FlowNetC6"), rows):
+        row.update(tensorboardX=has("tensorboardX"),
+                   matplotlib=has("matplotlib"))
+        emit(row)
+        n = row["epochs"]
+        launches[key] = (row["k1_launches"] // n, row["k1b_launches"] // n,
+                         row["steps"] // n,
+                         row["training_image_forwards"] // n,
+                         row["flow_validation_items"] // n)
+    return launches
+
+
 def path_entry(path: str, rows, launches: int,
-               per_shape: int = LAUNCHES_PER_SHAPE) -> dict:
+               per_shape: int = LAUNCHES_PER_SHAPE, more=()) -> dict:
     """A kernel's work on one run of a path: `per_shape` launches at each
-    of `rows`' shapes, `launches` counted on the path's run."""
-    total = lambda key, by=None: per_shape * sum(
-        r[key] for r in rows if by in (None, r["bound_by"]))
+    of `rows`' shapes, and the same for each (rows, per_shape) of `more`;
+    `launches` counted on the path's run."""
+    groups = [(rows, per_shape), *more]
+    total = lambda key, by=None: sum(
+        n * r[key] for rs, n in groups for r in rs
+        if by in (None, r["bound_by"]))
     return {"path": path, "launches": launches,
             "shapes": [[*r["shape"], r["patch"], r["dilation"]] if "patch"
-                       in r else r["shape"] for r in rows],
+                       in r else r["shape"] for rs, _ in groups for r in rs],
+            "launches_per_shape": [n for rs, n in groups for _ in rs],
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_us") / 1e3,
             "bound_by": max(("bytes", "operations"),
@@ -1070,6 +1322,7 @@ def main() -> int:
     gather_launches = phase_gather_path()
 
     launches = {}  # (flownet, "eval" | "step") -> (K1, K1') on that run
+    step_ms = {}  # flownet -> the resident train step's median ms
     for flownet in FLOWNETS:
         cfg = TrainConfig(flownet=flownet)
         nets, batch, k1_eval = phase_slice(cfg)
@@ -1077,7 +1330,8 @@ def main() -> int:
         phase_timing(cfg, nets, batch, gpu)
         del nets, batch
         torch.cuda.empty_cache()
-        launches[flownet, "step"] = phase_train(gpu, flownet)
+        launches[flownet, "step"], step_ms[flownet] = phase_train(
+            gpu, flownet)
         torch.cuda.empty_cache()
         phase_train_vs_cpu(flownet)
 
@@ -1090,19 +1344,45 @@ def main() -> int:
         # the resident step's copies do not depend on the batch's dtype
         phase_data(roots[256, 832], "uint8", gpu, profiled=("loader",))
         phase_resume(roots[128, 128], gpu)
+        add_depth_val_scene(roots[256, 832], 256, 832, frames=8)
+        cli = phase_train_cli(roots[256, 832], gpu, step_ms)
 
     n_b2f, n_c6 = len(B2F_CASES), len(C6_CASES)
     corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
+    start = n_b2f + n_c6 + len(RAGGED_CASES)
+    b1 = {"Back2Future": fwd_rows[start:start + n_b2f],
+          "FlowNetC6": fwd_rows[start + n_b2f:]}
     corr_paths = {}
     for kind, k in (("fwd", 0), ("bwd", 1)):
         b2f, c6 = corr_rows[kind][:n_b2f], corr_rows[kind][n_b2f:n_b2f + n_c6]
+        rows_of = {"Back2Future": b2f, "FlowNetC6": c6}
+
+        def cli_entry(path, key, flownet):
+            """One epoch of a CLI run: each step launches at the batch-4
+            shapes, each training-image forward too (K1 only), each
+            flow-validation forward at the batch-1 shapes (K1 only)."""
+            k1, k1b, steps, outputs, items = cli[key]
+            if kind == "bwd":
+                n = LAUNCHES_PER_SHAPE * steps if k1b else 0
+                return path_entry(path, rows_of[flownet], k1b, n)
+            return path_entry(path, rows_of[flownet], k1,
+                              LAUNCHES_PER_SHAPE * (steps + outputs),
+                              more=[(b1[flownet],
+                                     LAUNCHES_PER_SHAPE * items)])
+
         corr_paths[kind] = [
             path_entry("Back2Future train step", b2f,
                        launches["Back2Future", "step"][k]),
             path_entry("Back2Future train step fed by the loader", b2f,
                        loader_step[k]),
             path_entry("FlowNetC6 train step", c6,
-                       launches["FlowNetC6", "step"][k])]
+                       launches["FlowNetC6", "step"][k]),
+            cli_entry("Back2Future train CLI epoch", "Back2Future",
+                      "Back2Future"),
+            cli_entry("Back2Future train CLI epoch, --fix-flownet",
+                      "Back2Future fix_flownet", "Back2Future"),
+            cli_entry("FlowNetC6 train CLI epoch", "FlowNetC6",
+                      "FlowNetC6")]
         if kind == "fwd":
             corr_paths[kind] += [
                 path_entry("Back2Future eval forward", b2f,

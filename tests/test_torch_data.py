@@ -249,11 +249,15 @@ def _write_flow_png(path, r, writer):
 
 @pytest.fixture(scope="module")
 def kitti(tmp_path_factory):
-    """KITTI 2015 and 2012 layouts with N_KITTI items each: multiview
-    frames 08-12, flow_occ, obj_map, calib and semantic labels; 2012's
-    colored_0 pairs and flow_occ."""
+    return write_kitti(tmp_path_factory.mktemp("kitti"))
+
+
+def write_kitti(root):
+    """KITTI 2015 and 2012 layouts with N_KITTI items each under `root` (a
+    pathlib.Path): multiview frames 08-12, flow_occ, obj_map, calib and
+    semantic labels; 2012's colored_0 pairs and flow_occ. Returns root as
+    a string."""
     import cv2
-    root = tmp_path_factory.mktemp("kitti")
     r = np.random.default_rng(2)
     p_rect = " ".join(f"{v:.1f}" for v in
                       [70, 0, KW / 2, 1, 0, 71, KH / 2, 2, 0, 0, 1, 0])

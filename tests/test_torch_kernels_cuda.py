@@ -3,7 +3,8 @@ the correlation forward (K1) and backward (K1'), the autograd Function that
 joins them, and the row gather (K2); and FlowNetC6 through them: its
 gradients on the card against the CPU's, and its train step's launches.
 Besides the kernels: device_prefetch's batches against the host's under a
-busy consumer, and checkpoints moved between the card and the CPU.
+busy consumer, checkpoints moved between the card and the CPU, and the
+train CLI on the card against the same CLI on the CPU.
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports no JAX, so on a machine without JAX it runs without the
@@ -370,6 +371,91 @@ def test_device_prefetch_batches_equal_the_hosts_under_a_busy_consumer(
                 mine = c[k].cpu().numpy()
                 assert mine.dtype == v.dtype and np.array_equal(mine, v), \
                     (i, k, when)
+
+
+def _scene_folders(root) -> str:
+    """Two scenes of 6 smooth 128x128 JPEGs with cam.txt, in train.txt."""
+    import cv2
+    r = np.random.RandomState(0)
+    for s in ("drive_a_02", "drive_b_02"):
+        (root / s).mkdir(parents=True)
+        (root / s / "cam.txt").write_text("115.,0.,64.,0.,115.,64.,0.,0.,1.")
+        base = cv2.GaussianBlur((r.rand(144, 144, 3) * 255).astype(np.uint8),
+                                (21, 21), 8)
+        for i in range(6):
+            cv2.imwrite(str(root / s / f"{i:07d}.jpg"),
+                        base[i:i + 128, 2 * i:2 * i + 128])
+    (root / "train.txt").write_text("drive_a_02\ndrive_b_02\n")
+    return str(root)
+
+
+def _kitti2015(root, items: int = 2, h: int = 40, w: int = 100) -> str:
+    """A KITTI 2015 training tree: frames 08-12, flow_occ (flow within
+    +-30 px, 70 % valid), obj_map and calibration."""
+    import cv2
+    from cc_tpu_torch.utils.flow_io import flow_write_png
+    r = np.random.RandomState(2)
+    mv = root / "data_scene_flow_multiview" / "training" / "image_2"
+    occ = root / "data_scene_flow" / "training" / "flow_occ"
+    obj = root / "data_scene_flow" / "training" / "obj_map"
+    cal = root / "data_scene_flow_calib" / "training" / "calib_cam_to_cam"
+    for d in (mv, occ, obj, cal):
+        d.mkdir(parents=True)
+    for i in range(items):
+        i6 = f"{i:06d}"
+        for f in range(8, 13):
+            cv2.imwrite(str(mv / f"{i6}_{f:02d}.png"), cv2.GaussianBlur(
+                (r.rand(h, w, 3) * 255).astype(np.uint8), (7, 7), 2))
+        u, v = (np.round(r.uniform(-30, 30, (h, w)) * 64) / 64
+                for _ in range(2))
+        flow_write_png(str(occ / f"{i6}_10.png"), u, v,
+                       (r.rand(h, w) > 0.3).astype(np.uint16))
+        cv2.imwrite(str(obj / f"{i6}_10.png"),
+                    r.randint(0, 3, (h, w)).astype(np.uint8))
+        (cal / f"{i6}.txt").write_text(
+            f"P_rect_02: 70 0 {w / 2} 1 0 71 {h / 2} 2 0 0 1 0\n")
+    return str(root)
+
+
+# The train CLI's flow validation on the card against the CPU's after the
+# same 2 steps: the EPEs within CLI_EPE_RTOL (the card-vs-CPU forward
+# tolerance of chip_smoke.py, whose steps also leave parameters up to
+# 2*lr apart per step), and the outlier shares within CLI_EDGE_PIXELS
+# pixels of the valid ones
+CLI_EPE_RTOL = 1e-3
+CLI_EDGE_PIXELS = 3
+
+
+def test_train_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """python -m cc_tpu_torch.cli.train at 128x128 batch 2, 2 steps with
+    flow validation over 2 KITTI items, on the card (10 K1 and 10 K1' per
+    step, 10 K1 per validation item) and on the CPU (no launch) from the
+    same seed: the validation errors agree."""
+    from cc_tpu_torch.cli import train as cli
+    argv = [_scene_folders(tmp_path / "scenes"), "--name", "x", "--height",
+            "128", "--width", "128", "-b", "2", "--epochs", "1",
+            "--epoch-size", "2", "-j", "2", "--loader", "python",
+            "--with-flow-gt", "--kitti-dir", _kitti2015(tmp_path / "kitti"),
+            "--val-flow-height", "128", "--val-flow-width", "128",
+            "--val-flow-N", "2", "--lr", "1e-4"]
+    records, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        monkeypatch.chdir(tmp_path / dev)
+        tc.launches = tc.backward_launches = 0
+        records[dev], = cli.main(argv + ["--device", dev])
+        launches[dev] = (tc.launches, tc.backward_launches)
+    assert launches == {"cuda": (2 * 10 + 2 * 10, 2 * 10), "cpu": (0, 0)}
+    gpu, cpu = records["cuda"], records["cpu"]
+    assert gpu["steps"] == cpu["steps"] == 2
+    n_valid = 0.7 * 40 * 100 * 0.9  # well under each item's valid pixels
+    print({n: abs(a - e) for n, a, e in
+           zip(cli.FLOW_NAMES, gpu["flow_errors"], cpu["flow_errors"])})
+    for n, a, e in zip(cli.FLOW_NAMES, gpu["flow_errors"],
+                       cpu["flow_errors"]):
+        tol = (CLI_EDGE_PIXELS / n_valid if n.startswith("outliers")
+               else CLI_EPE_RTOL * abs(e))
+        assert abs(a - e) <= tol, (n, a, e)
 
 
 def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):

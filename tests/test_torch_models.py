@@ -8,6 +8,8 @@ included, so that eval-mode BN is exercised; the weights go to the port
 through cc_tpu_torch.weights, whose state dict must equal cc_tpu's
 export_state_dict exactly.
 """
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -15,9 +17,11 @@ import jax.numpy as jnp
 import torch
 
 from cc_tpu import models as jmodels
-from cc_tpu.train.torch_export import export_state_dict
+from cc_tpu.train.torch_export import export_state_dict, save_torch_checkpoint
 from cc_tpu_torch import models as tmodels
-from cc_tpu_torch.weights import load_flax_weights, state_dict_from_flax
+from cc_tpu_torch.weights import (
+    load_flax_weights, load_pretrained, state_dict_from_flax,
+)
 from tests.torch_port_util import (
     assert_close, draw_flax_variables, nchw_to_nhwc, nhwc_to_nchw,
 )
@@ -26,9 +30,15 @@ torch.set_num_threads(2)
 
 B, H, W = 1, 128, 128
 ARCHS = ["DispResNet6", "PoseNetB6", "MaskNet6", "Back2Future", "FlowNetC6"]
-# the rest of the DispNet family, off the main path
-VARIANTS = ["DispNetS", "DispNetS6", "DispResNetS6"]
-NREF = {"PoseNetB6": 4, "MaskNet6": 4, "Back2Future": 2, "FlowNetC6": 1}
+# the rest of the zoo, which the train CLI's --dispnet, --posenet and
+# --masknet offer; PoseExpNet+exp is PoseExpNet with its mask decoder
+VARIANTS = ["DispNetS", "DispNetS6", "DispResNetS6", "PoseNet6", "PoseExpNet",
+            "PoseExpNet+exp", "MaskResNet6"]
+NREF = {"PoseNetB6": 4, "MaskNet6": 4, "Back2Future": 2, "FlowNetC6": 1,
+        "PoseNet6": 4, "PoseExpNet": 4, "PoseExpNet+exp": 4,
+        "MaskResNet6": 4}
+# case -> (architecture, constructor arguments) where they differ
+BUILD = {"PoseExpNet+exp": ("PoseExpNet", {"output_exp": True})}
 # fp32 convs summed in another order by XLA and oneDNN, through up to ~40
 # layers; relative to each output's largest magnitude
 RTOL = 1e-4
@@ -40,6 +50,11 @@ GRAD_RTOL = 1e-4
 # (tests/test_models.py:166): it predates the sixth level, deconv1 +
 # predict_flow1 + upsampled_flow2_to_1 = 101,192 parameters.
 FLOWNETC6_PARAMS = 39_276_490
+
+
+def _arch(case):
+    """(architecture, constructor arguments) of a test case."""
+    return BUILD.get(case, (case, {}))
 
 
 def _inputs(arch, b=B):
@@ -66,7 +81,8 @@ def flax_vars():
     r = np.random.RandomState(1)
     out = {}
     for arch in ARCHS + VARIANTS:
-        net = jmodels.build(arch)
+        name, kw = _arch(arch)
+        net = jmodels.build(name, **kw)
         args = _args(arch, *_inputs(arch))
         v = jax.eval_shape(lambda k: net.init(k, *args, training=True),
                            jax.random.PRNGKey(0))
@@ -78,15 +94,70 @@ def flax_vars():
 @pytest.mark.parametrize("arch", ARCHS + VARIANTS)
 def test_state_dict_equals_export(flax_vars, arch):
     _, params, stats = flax_vars[arch]
-    mine = state_dict_from_flax(arch, params, stats)
-    ref = export_state_dict(arch, params, stats)
+    name, kw = _arch(arch)
+    mine = state_dict_from_flax(name, params, stats)
+    ref = export_state_dict(name, params, stats)
     assert mine.keys() == ref.keys()
     for k in ref:
         assert mine[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
-    net = tmodels.build(arch)
-    load_flax_weights(net, arch, params, stats)  # strict
+    net = tmodels.build(name, **kw)
+    load_flax_weights(net, name, params, stats)  # strict
     assert set(net.state_dict()) == set(ref)
+
+
+def _assert_same_weights(net, ref):
+    mine, expected = net.state_dict(), ref.state_dict()
+    assert mine.keys() == expected.keys()
+    for k in expected:
+        assert torch.equal(mine[k], expected[k]), k
+
+
+@pytest.mark.parametrize("arch", ARCHS + VARIANTS)
+def test_pretrained_checkpoint_loads_bit_for_bit(flax_vars, arch, tmp_path):
+    """--pretrained-*: a reference .pth.tar written by cc_tpu's exporter
+    loads into the port's net as load_flax_weights loads the same
+    variables. PoseExpNet starts without its mask decoder, as make_models
+    builds it, and is rebuilt with one when the checkpoint has it."""
+    _, params, stats = flax_vars[arch]
+    name, kw = _arch(arch)
+    path = str(tmp_path / "net.pth.tar")
+    save_torch_checkpoint(path, name, params, stats)
+    nets = torch.nn.ModuleDict({"net": tmodels.build(name)})
+    load_pretrained(nets, {"net": path})
+    os.remove(path)
+    _assert_same_weights(nets["net"], load_flax_weights(
+        tmodels.build(name, **kw), name, params, stats))
+
+
+def test_pretrained_drops_prefix_and_batch_counts(flax_vars, tmp_path):
+    """A DataParallel prefix and BatchNorm's num_batches_tracked, as a
+    torch >= 0.4.1 reference run saves them, in a bare state dict."""
+    _, params, stats = flax_vars["DispResNet6"]
+    sd = export_state_dict("DispResNet6", params, stats)
+    counts = [k for k in sd if k.endswith("num_batches_tracked")]
+    assert counts
+    sd = {"module." + k: torch.tensor(7) if k in counts
+          else torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    path = str(tmp_path / "dp.pth.tar")
+    torch.save(sd, path)
+    nets = torch.nn.ModuleDict({"disp": tmodels.build("DispResNet6")})
+    load_pretrained(nets, {"disp": path})
+    _assert_same_weights(nets["disp"], load_flax_weights(
+        tmodels.build("DispResNet6"), "DispResNet6", params, stats))
+
+
+@pytest.mark.parametrize("saved,into", [("MaskNet6", "MaskResNet6"),
+                                        ("DispNetS6", "DispNetS"),
+                                        ("PoseNetB6", "PoseNet6")])
+def test_pretrained_wrong_architecture_raises(flax_vars, tmp_path, saved,
+                                              into):
+    _, params, stats = flax_vars[saved]
+    path = str(tmp_path / "net.pth.tar")
+    save_torch_checkpoint(path, saved, params, stats)
+    nets = torch.nn.ModuleDict({"mask": tmodels.build(into)})
+    with pytest.raises(ValueError, match=f"--pretrained-mask .*{into}"):
+        load_pretrained(nets, {"mask": path})
 
 
 def test_dispresnet6_has_perturbed_batchnorm(flax_vars):
@@ -97,14 +168,17 @@ def test_dispresnet6_has_perturbed_batchnorm(flax_vars):
 
 
 def _flat(x):
+    """The outputs in order; None (PoseExpNet's masks without the
+    decoder) is left out, on both sides."""
+    if x is None:
+        return []
     if isinstance(x, (list, tuple)):
         return [y for z in x for y in _flat(z)]
     return [x]
 
 
 @pytest.mark.parametrize("arch,training", [
-    *[(a, t) for a in ARCHS for t in (False, True)],
-    *[(a, False) for a in VARIANTS]])
+    (a, t) for a in ARCHS + VARIANTS for t in (False, True)])
 def test_forward_matches(flax_vars, arch, training):
     """Eval mode: running BN stats, finest outputs. Train mode: batch BN
     stats, every scale (the running-stat update is the training slice's),
@@ -118,7 +192,8 @@ def test_forward_matches(flax_vars, arch, training):
     ref = jax.jit(lambda v: net_j.apply(v, *args, training=training,
                                         mutable=["batch_stats"])[0])(variables)
 
-    net_t = load_flax_weights(tmodels.build(arch), arch, params, stats)
+    name, kw = _arch(arch)
+    net_t = load_flax_weights(tmodels.build(name, **kw), name, params, stats)
     net_t.train(training)
     t_args = [nhwc_to_nchw(a) if isinstance(a, np.ndarray)
               else [nhwc_to_nchw(x) for x in a] for a in args]

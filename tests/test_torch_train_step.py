@@ -350,7 +350,7 @@ def test_flownetc6_fix_flownet_step_keeps_f(flownetc6_steps):
 
 @pytest.mark.parametrize("change", [
     dict(compute_dtype="bfloat16"), dict(loss_dtype="bfloat16"),
-    dict(flownet="PWCNet")])
+    dict(flownet="PWCNet"), dict(posenet="PoseExpNet")])
 def test_unported_configs_raise(change):
     cfg = TrainConfig(height=128, width=128, batch_size=1,
                       flownet="FlowNetC6").replace(**change)
