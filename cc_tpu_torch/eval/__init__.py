@@ -1,2 +1,3 @@
-"""Evaluation: the composite rigid and non-rigid flow (the counterpart of
-cc_tpu/eval)."""
+"""Evaluation: the composite rigid and non-rigid flow, and the benchmark
+frameworks of the eval CLIs (KITTI Eigen depth, stillbox, KITTI odometry,
+MPI-Sintel); the counterpart of cc_tpu/eval."""

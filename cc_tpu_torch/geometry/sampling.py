@@ -13,6 +13,20 @@ import torch
 import torch.nn.functional as F
 
 
+def _clamp_to_border(grid: torch.Tensor) -> torch.Tensor:
+    """The grid clamped to [-1, 1], with no gradient on and beyond the
+    edges. Sampled with zeros padding and align_corners=True, it gives
+    border mode's values and gradients: border mode clips the location
+    to the image and passes no gradient to a clipped one, the edge
+    included. A NaN stays a NaN.
+
+    The CPU backward of border mode (torch 2.13) crashes the process when
+    the grid holds a NaN; zeros mode does not, so this stands in for it on
+    the CPU."""
+    inside = (grid > -1.0) & (grid < 1.0)
+    return torch.where(inside, grid, grid.detach().clamp(-1.0, 1.0))
+
+
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
                 padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear sample `img` [B, C, H, W] at normalized `grid` [B, Hg, Wg, 2].
@@ -21,7 +35,10 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     """
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
-    out = F.grid_sample(img.float(), grid.float(), mode="bilinear",
+    grid = grid.float()
+    if padding_mode == "border" and grid.device.type == "cpu":
+        grid, padding_mode = _clamp_to_border(grid), "zeros"
+    out = F.grid_sample(img.float(), grid, mode="bilinear",
                         padding_mode=padding_mode, align_corners=True)
     return out.to(img.dtype)
 

@@ -284,6 +284,20 @@ def load_reference_weights(net: nn.Module, sd: dict[str, torch.Tensor],
     return net
 
 
+def without_unused_mask_decoder(net: nn.Module,
+                                sd: dict[str, torch.Tensor]) -> dict:
+    """`sd` for `net`: a PoseExpNet built without its mask decoder
+    (output_exp=False, as test_disp builds it) takes a checkpoint that
+    has one, whose decoder keys (upconv*, predict_mask*) are left out.
+    cc_tpu's importer maps them into variables that its forward never
+    reads (torch_import.py:139-146); the reference loads the file with
+    strict=False (test_disp.py). Any other net's `sd` is returned as is."""
+    if net.arch != "PoseExpNet" or net.output_exp:
+        return sd
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("upconv", "predict_mask"))}
+
+
 def load_pretrained(nets: nn.ModuleDict,
                     paths: dict[str, str | None]) -> None:
     """The train CLI's --pretrained-{disp,pose,mask,flow}: load each given

@@ -70,7 +70,20 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    --fix-flownet run and every net moved in the last; seconds per epoch,
    the im/s the CLI printed beside the train phase's resident step,
    validation ms per item, checkpoint seconds and bytes.
-14. kernels: one entry per kernel; its launches, times and bound per run
+14. eval_cli: every eval and inference CLI of the port (test_disp with
+   a pose net, test_make3d, run_inference, test_pose, test_sintel_pose,
+   test_back2future with Back2Future and with FlowNetC6, test_flow,
+   test_mask, submit_flow, evaluate_flow) in-process on the card at its
+   default size, on trees written at KITTI's widths (an Eigen drive with
+   velodyne scans, an odometry and a Sintel sequence, Make3D, an image
+   folder, the KITTI 2015 tree of train_cli with semantic labels), from
+   reference checkpoints of the port's nets at random: 4 items each
+   (Make3D: its 61). Each run's K1 launches against its items (10 an item
+   for Back2Future, 1 for FlowNetC6, 0 without F), finite results,
+   seconds per item and the host's share of them (a profiler of the
+   card's kernels); test_disp and test_flow on the card against the same
+   CLIs on the CPU.
+15. kernels: one entry per kernel; its launches, times and bound per run
    of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -142,6 +155,15 @@ PARAM_MOVED_SHARE = 0.01
 # (memory bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data sheets
 PEAKS = [("H100 PCIe", (2.0e12, 51e12)), ("H100 NVL", (3.9e12, 60e12)),
          ("H100", (3.35e12, 67e12)), ("H200", (4.8e12, 67e12))]
+# The eval CLIs' runs: K1 launches per item of each flow net's forward
+# (Back2Future: both streams at its 5 pyramid levels; FlowNetC6, which the
+# eval CLIs run once an item: 1), and the card-vs-CPU tolerances of
+# tests/test_torch_kernels_cuda.py (CLI_EPE_RTOL, CLI_EDGE_PIXELS)
+EVAL_K1_PER_ITEM = {"Back2Future": LAUNCHES_PER_SHAPE * len(B2F_CASES),
+                    "FlowNetC6": len(C6_CASES)}
+EVAL_RTOL = 1e-3
+EVAL_EDGE_PIXELS = 3
+EVAL_ITEMS = 4
 
 
 def emit(obj) -> None:
@@ -1255,6 +1277,405 @@ def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
     return launches
 
 
+def _png(path: str, img: np.ndarray) -> None:
+    import cv2
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not cv2.imwrite(path, img):
+        raise AssertionError(f"could not write {path}")
+
+
+def _smooth(r, h: int, w: int) -> np.ndarray:
+    import cv2
+    return cv2.GaussianBlur((r.rand(h, w, 3) * 255).astype(np.uint8),
+                            (21, 21), 8)
+
+
+def synthetic_eigen(root: str, items: int, h: int = 375,
+                    w: int = 1242) -> str:
+    """A KITTI raw drive for the Eigen protocol at KITTI's frame size:
+    items + 2 frames of image_02, a velodyne scan for each of the `items`
+    middle ones (points back-projected from a pixel grid of the lower
+    60% of the frame at depths of 5-60 m), KITTI's calibration layout (fx
+    721.5) and oxts timestamps and speeds. Writes test_files.txt (the middle frames). Returns root."""
+    r = np.random.RandomState(3)
+    date, drive = "2011_09_26", "2011_09_26_drive_0002_sync"
+    fx, cx, cy = 721.5377, w / 2, h / 2
+    os.makedirs(os.path.join(root, date, drive, "velodyne_points", "data"))
+    os.makedirs(os.path.join(root, date, drive, "oxts", "data"))
+    with open(os.path.join(root, date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write("R_rect_00: 1 0 0 0 1 0 0 0 1\n")
+        f.write(f"P_rect_02: {fx} 0 {cx} 44.9 0 {fx} {cy} 0.2 0 0 1 "
+                "0.003\n")
+    r_vc = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    with open(os.path.join(root, date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write("R: " + " ".join(map(str, r_vc.ravel())) + "\nT: 0 0 0\n")
+    base = _smooth(r, h + items + 2, w + 2 * (items + 2))
+    # about 18,600 points in view, as a KITTI scan has some 20,000
+    us, vs = np.meshgrid(np.arange(4, w - 4, 5.0), np.arange(150, h - 2, 3.0))
+    us, vs = us.ravel(), vs.ravel()
+    with open(os.path.join(root, date, drive, "oxts", "timestamps.txt"),
+              "w") as f:
+        for i in range(items + 2):
+            f.write(f"2011-09-26 13:02:25.{100000000 * i:09d}\n")
+    names = []
+    for i in range(items + 2):
+        _png(os.path.join(root, date, drive, "image_02", "data",
+                          f"{i:010d}.png"), base[i:i + h, 2 * i:2 * i + w])
+        row = [0.0] * 30
+        row[8:11] = [9.0 + i, 0.2, 0.0]  # forward, left, up m/s
+        with open(os.path.join(root, date, drive, "oxts", "data",
+                               f"{i:010d}.txt"), "w") as f:
+            f.write(" ".join(map(str, row)) + "\n")
+        if 0 < i <= items:
+            z = r.uniform(5.0, 60.0, us.shape)
+            cam = np.stack([(us - cx) * z / fx, (vs - cy) * z / fx, z], 1)
+            pts = np.concatenate([cam @ r_vc, np.ones((len(z), 1))], 1)
+            pts.astype(np.float32).tofile(os.path.join(
+                root, date, drive, "velodyne_points", "data",
+                f"{i:010d}.bin"))
+            names.append(f"{date}/{drive}/image_02/data/{i:010d}.png")
+    with open(os.path.join(root, "test_files.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return root
+
+
+def synthetic_pose_trees(root: str, snippets: int) -> tuple[str, str]:
+    """A KITTI odometry sequence (09, 1241x376 frames, poses of a camera
+    driving forward and turning) and an MPI-Sintel sequence (alley_1,
+    1024x436 frames, .cam files), each of snippets + 4 frames: `snippets`
+    5-frame snippets. Returns (odometry root, Sintel root)."""
+    r = np.random.RandomState(4)
+    odo, sintel = os.path.join(root, "odometry"), os.path.join(root, "sintel")
+    n = snippets + 4
+    t = np.eye(4)
+    os.makedirs(os.path.join(odo, "poses"))
+    os.makedirs(os.path.join(sintel, "camdata_left", "alley_1"))
+    base = _smooth(r, 436 + n, 1241 + 2 * n)
+    k = np.array([[1120.0, 0, 511.5], [0, 1120.0, 217.5], [0, 0, 1]])
+    with open(os.path.join(odo, "poses", "09.txt"), "w") as f:
+        for i in range(n):
+            f.write(" ".join(map(str, t[:3].ravel())) + "\n")
+            _png(os.path.join(odo, "sequences", "09", "image_2",
+                              f"{i:06d}.png"), base[i:i + 376, 2 * i:2 * i + 1241])
+            _png(os.path.join(sintel, "clean", "alley_1",
+                              f"frame_{i + 1:04d}.png"),
+                 base[i:i + 436, 2 * i:2 * i + 1024])
+            with open(os.path.join(sintel, "camdata_left", "alley_1",
+                                   f"frame_{i + 1:04d}.cam"), "wb") as c:
+                c.write(np.float32(202021.25).tobytes())
+                c.write(k.tobytes() + t[:3].tobytes())
+            step = np.eye(4)
+            a = 0.01 * (i % 3 - 1)
+            step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                            [-np.sin(a), 0, np.cos(a)]]
+            step[:3, 3] = [0.02, 0.0, 0.8]
+            t = t @ step
+    return odo, sintel
+
+
+def synthetic_make3d(root: str) -> str:
+    """Make3D's layout at its own sizes: 62 Test134 JPEGs of 2272x1704 and
+    Gridlaserdata .mat files with Position3DGrid [55, 305, 4] (depths of
+    2-75 m); the framework drops sample 61, which is corrupt in the real
+    set, so this makes 61 items. Returns root."""
+    import cv2
+    from scipy.io import savemat
+    r = np.random.RandomState(5)
+    os.makedirs(os.path.join(root, "Test134"))
+    os.makedirs(os.path.join(root, "Gridlaserdata"))
+    base = _smooth(r, 2272 + 62, 1704)
+    for i in range(62):
+        cv2.imwrite(os.path.join(root, "Test134", f"img-{i:03d}.jpg"),
+                    base[i:i + 2272])
+        grid = np.zeros((55, 305, 4))
+        grid[..., 3] = r.uniform(2.0, 75.0, (55, 305))
+        savemat(os.path.join(root, "Gridlaserdata", f"depth-{i:03d}.mat"),
+                {"Position3DGrid": grid})
+    return root
+
+
+def add_semantic_labels(root: str, items: int, h: int = 375,
+                        w: int = 1242) -> None:
+    """test_mask's semantic maps beside a synthetic_kitti2015 tree: the
+    bottom half labelled car (26, KITTI's class), the rest road (7)."""
+    for i in range(items):
+        sem = np.full((h, w), 7, np.uint8)
+        sem[h // 2:] = 26
+        _png(os.path.join(root, "semantic_labels", "training", "semantic",
+                          f"{i:06d}_10.png"), sem)
+
+
+def reference_checkpoints(root: str) -> dict:
+    """.pth.tar files in the reference's format ({'epoch', 'state_dict'},
+    the reference's parameter names) of the port's nets, initialized at
+    random from torch seed 0: the paper's four, named as submit_flow reads
+    them, and FlowNetC6, PoseExpNet (2 references, as test_disp builds it)
+    and DispNetS (run_inference's default)."""
+    from cc_tpu_torch import models
+    torch.manual_seed(0)
+    specs = {"dispnet_model_best": ("DispResNet6", {}),
+             "posenet_model_best": ("PoseNetB6", {"nb_ref_imgs": 4}),
+             "masknet_model_best": ("MaskNet6", {"nb_ref_imgs": 4}),
+             "flownet_model_best": ("Back2Future", {"nlevels": 6}),
+             "flownetc6": ("FlowNetC6", {"nlevels": 6}),
+             "poseexpnet": ("PoseExpNet", {"nb_ref_imgs": 2}),
+             "dispnets": ("DispNetS", {})}
+    os.makedirs(root)
+    paths = {}
+    for name, (arch, kw) in specs.items():
+        paths[name] = os.path.join(root, name + ".pth.tar")
+        torch.save({"epoch": 0,
+                    "state_dict": models.build(arch, **kw).state_dict()},
+                   paths[name])
+    return paths
+
+
+def _numbers(out) -> list[float]:
+    """Every number of an eval CLI's return value."""
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], list) \
+            and all(isinstance(n, str) for n in out[1]):
+        out = out[0]  # test_flow's (errors, names)
+    return [float(v) for v in np.ravel(np.asarray(out, dtype=np.float64))]
+
+
+def _eval_run(name: str, main, argv: list[str], items: int, k1_per_item: int,
+              gpu: str, device: str = "cuda") -> tuple[dict, object]:
+    """One eval CLI's main on `device`, the launch counts set to 0 just
+    before it, under a profiler of the card's kernels: its K1 launches
+    against k1_per_item x items, finite results, seconds per item and the
+    share of them in which the card ran no kernel (the host's). Returns its
+    JSON row and what main returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    corr.launches = corr.backward_launches = 0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = main(argv + ["--device", device])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k1b = corr.launches, corr.backward_launches
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    numbers = _numbers(out) if out is not None else []
+    row = {"phase": "eval_cli", "run": name, "device": device, "gpu": gpu,
+           "argv": " ".join(argv), "items": items, "seconds": seconds,
+           "s_per_item": seconds / items,
+           "device_s_per_item": busy_s / items,
+           "host_share": 1 - busy_s / seconds,
+           "k1_launches": k1, "expected_k1": k1_per_item * items,
+           "k1b_launches": k1b, "result": numbers}
+    failures = []
+    if (k1, k1b) != (k1_per_item * items, 0):
+        failures.append(f"{k1} K1 and {k1b} K1' launches, expected "
+                        f"{k1_per_item * items} and 0")
+    if not all(np.isfinite(numbers)):
+        failures.append(f"non-finite results {numbers}")
+    if failures:
+        emit(row)
+        raise AssertionError(f"eval CLI {name}: " + "; ".join(failures))
+    return row, out
+
+
+def _card_vs_cpu(name: str, names: list[str], card, cpu,
+                 tols: dict) -> dict:
+    """An eval CLI's results on the card against the CPU's, each within
+    its tolerance in `tols` (by name), else within EVAL_RTOL."""
+    report, failures = {}, []
+    for n, a, e in zip(names, card, cpu):
+        tol = float(tols.get(n, EVAL_RTOL * abs(e)))
+        report[n] = {"card": float(a), "cpu": float(e),
+                     "abs_diff": float(abs(a - e)), "tol": tol}
+        if not abs(a - e) <= tol:
+            failures.append(f"{n}: card {a}, CPU {e}, tolerance {tol}")
+    if failures:
+        raise AssertionError(f"eval CLI {name}, card vs CPU: "
+                             + "; ".join(failures))
+    return report
+
+
+def _largest_flow(argv: list[str], items: int) -> float:
+    """The largest component of F's and of the rigid flow over test_flow's
+    items on the card, in pixels of the frames' own size."""
+    from cc_tpu_torch.cli import test_flow
+    from cc_tpu_torch.data import transforms
+    from cc_tpu_torch.data.validation import ValidationFlow
+    args = test_flow.parser.parse_args(argv)
+    dev = torch.device("cuda")
+    nets = test_flow.load_four_nets(args, dev, {
+        "disp": args.pretrained_disp, "pose": args.pretrained_pose,
+        "mask": args.pretrained_mask, "flow": args.pretrained_flow})
+    val = ValidationFlow(args.kitti_dir, transform=transforms.
+                         valid_flow_transform(args.img_height,
+                                              args.img_width), N=items)
+    top = 0.0
+    for i in range(items):
+        s = val[i]
+        out = test_flow.four_net_forward(nets, s, dev)
+        scale = max(s["flow_gt"].shape[1] / args.img_width,
+                    s["flow_gt"].shape[0] / args.img_height)
+        top = max(top, scale * float(max(out["flow_fwd"].abs().max(),
+                                         out["flow_cam"].abs().max())))
+    return top
+
+
+def phase_eval_cli(gpu: str) -> dict:
+    """Every eval and inference CLI of the port, in-process on the card,
+    on trees at KITTI's widths written here (KITTI 2015's is the train CLI
+    phase's synthetic_kitti2015, with semantic labels added), from
+    reference checkpoints of the port's nets at random: test_disp with a
+    pose net, test_make3d, run_inference, test_pose, test_sintel_pose,
+    test_back2future (Back2Future, and FlowNetC6), test_flow, test_mask,
+    submit_flow (--DEBUG: KITTI 2015's training split) and evaluate_flow
+    on its output. Each run's K1 launches against its items, its results
+    finite, and test_disp and test_flow on the card against the same CLIs
+    on the CPU. Returns {flow net run: (K1 launches, items, flow net)}."""
+    from cc_tpu_torch.cli import (
+        evaluate_flow, run_inference, submit_flow, test_back2future,
+        test_disp, test_flow, test_make3d, test_mask, test_pose,
+        test_sintel_pose,
+    )
+    from cc_tpu_torch.eval.kitti_depth import KittiEigenFramework
+    from cc_tpu_torch.utils.flow_io import flow_read_png
+    n = EVAL_ITEMS
+    b2f, c6 = EVAL_K1_PER_ITEM["Back2Future"], EVAL_K1_PER_ITEM["FlowNetC6"]
+    rows, k1_paths = [], {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ck = reference_checkpoints(os.path.join(tmp, "ckpts"))
+        kitti = synthetic_kitti2015(os.path.join(tmp, "kitti2015"), n)
+        add_semantic_labels(kitti, n)
+        eigen = synthetic_eigen(os.path.join(tmp, "eigen"), n)
+        odo, sintel = synthetic_pose_trees(os.path.join(tmp, "pose"), n)
+        make3d = synthetic_make3d(os.path.join(tmp, "make3d"))
+        imgs = os.path.join(tmp, "images")
+        r = np.random.RandomState(6)
+        for i in range(n):
+            _png(os.path.join(imgs, f"{i:06d}.png"), _smooth(r, 375, 1242))
+        trees_s = time.perf_counter() - t0
+
+        disp_argv = ["--pretrained-dispnet", ck["dispnet_model_best"],
+                     "--pretrained-posenet", ck["poseexpnet"],
+                     "--dataset-dir", eigen, "--dataset-list",
+                     os.path.join(eigen, "test_files.txt")]
+        four = ["--kitti-dir", kitti, "-N", str(n),
+                "--pretrained-disp", ck["dispnet_model_best"],
+                "--pretrained-pose", ck["posenet_model_best"],
+                "--pretrained-mask", ck["masknet_model_best"],
+                "--pretrained-flow", ck["flownet_model_best"]]
+        runs = [
+            ("test_disp", test_disp.main, disp_argv, n, 0),
+            ("test_make3d", test_make3d.main,
+             ["--pretrained-dispnet", ck["dispnet_model_best"],
+              "--dataset-dir", make3d], 61, 0),
+            ("run_inference", run_inference.main,
+             ["--pretrained", ck["dispnets"], "--dataset-dir", imgs,
+              "--output-dir", os.path.join(tmp, "inference"),
+              "--output-disp", "--output-depth"], n, 0),
+            ("test_pose", test_pose.main,
+             [ck["posenet_model_best"], "--dataset-dir", odo], n, 0),
+            ("test_sintel_pose", test_sintel_pose.main,
+             [ck["posenet_model_best"], "--dataset-dir", sintel], n, 0),
+            ("test_back2future", test_back2future.main,
+             ["--kitti-dir", kitti, "-N", str(n), "--pretrained-flow",
+              ck["flownet_model_best"]], n, b2f),
+            ("test_back2future --flownet FlowNetC6", test_back2future.main,
+             ["--kitti-dir", kitti, "-N", str(n), "--pretrained-flow",
+              ck["flownetc6"], "--flownet", "FlowNetC6"], n, c6),
+            ("test_flow", test_flow.main,
+             four + ["--output-dir", os.path.join(tmp, "flow_card")], n,
+             b2f),
+            ("test_mask", test_mask.main, four, n, b2f),
+            ("submit_flow --DEBUG", submit_flow.main,
+             [os.path.join(tmp, "ckpts"), "--kitti-dir", kitti, "-N", str(n),
+              "--DEBUG", "--output-dir", os.path.join(tmp, "submission")],
+             n, b2f)]
+        outs = {}
+        for name, main, argv, items, per in runs:
+            row, outs[name] = _eval_run(name, main, argv, items, per, gpu)
+            rows.append(row)
+            if per:
+                flownet = "FlowNetC6" if "FlowNetC6" in name else \
+                    "Back2Future"
+                k1_paths[name] = (row["k1_launches"], items, flownet)
+        written = sorted(os.listdir(os.path.join(tmp, "inference")))
+        if len(written) != 2 * n:
+            raise AssertionError(f"run_inference wrote {written}")
+        # evaluate_flow on the submission's PNGs against the tree's GT
+        t1 = time.perf_counter()
+        ev = evaluate_flow.main([
+            "--output-dir", os.path.join(tmp, "submission", "testing"),
+            "--gt-dir", os.path.join(kitti, "data_scene_flow", "training",
+                                     "flow_occ"), "-N", str(n)])
+        seconds = time.perf_counter() - t1
+        rows.append({"phase": "eval_cli", "run": "evaluate_flow",
+                     "device": "host", "gpu": gpu, "items": n,
+                     "seconds": seconds, "s_per_item": seconds / n,
+                     "host_share": 1.0, "k1_launches": 0,
+                     "result": [float(v) for v in ev]})
+        if not all(np.isfinite(ev)):
+            raise AssertionError(f"evaluate_flow: non-finite {ev}")
+
+        # the card against the CPU: test_disp and test_flow
+        with open(os.path.join(eigen, "test_files.txt")) as f:
+            files = f.read().splitlines()
+        depth_valid = min(int(KittiEigenFramework(eigen, files, 0, 1e-3, 80)
+                              [i]["mask"].sum()) for i in range(n))
+        flow_valid = min(int(flow_read_png(os.path.join(
+            kitti, "data_scene_flow", "training", "flow_occ",
+            f"{i:06d}_10.png"))[2].sum()) for i in range(n))
+        t1 = time.perf_counter()
+        cpu_disp = test_disp.main(disp_argv + ["--device", "cpu"])
+        cpu_flow, flow_names = test_flow.main(
+            four + ["--output-dir", os.path.join(tmp, "flow_cpu"),
+                    "--device", "cpu"])
+        cpu_s = time.perf_counter() - t1
+        card_flow, _ = outs["test_flow"]
+        # combined masks that differ (a pixel within rounding of a mask's
+        # threshold) move it between the partitions: each moves epe_sp and
+        # epe_mv by at most its endpoint error, |gt| (under 42.5 px here)
+        # plus the larger of the two flows, over the valid pixels
+        flips = [int((np.load(os.path.join(tmp, "flow_card", "mask",
+                                           f"{i:03d}.npy"))
+                      != np.load(os.path.join(tmp, "flow_cpu", "mask",
+                                              f"{i:03d}.npy"))).sum())
+                 for i in range(n)]
+        if max(flips) > EVAL_EDGE_PIXELS:
+            raise AssertionError(f"test_flow: combined masks, card vs CPU, "
+                                 f"differ at {flips} pixels")
+        pixel_epe = 42.5 + 2 ** 0.5 * _largest_flow(four, n)
+        edge = lambda valid: EVAL_EDGE_PIXELS / valid
+        disp_names = ["abs_rel", "sq_rel", "rms", "log_rms", "a1", "a2",
+                      "a3"]
+        report = {
+            "test_disp": _card_vs_cpu(
+                "test_disp", disp_names, outs["test_disp"][1], cpu_disp[1],
+                dict.fromkeys(("a1", "a2", "a3"), edge(depth_valid))),
+            "test_flow": _card_vs_cpu(
+                "test_flow", flow_names, card_flow, cpu_flow, {
+                    **dict.fromkeys(("Fl", "Fl_gt_mask"), edge(flow_valid)),
+                    **{k: EVAL_RTOL * abs(e) + max(flips) * pixel_epe
+                       / flow_valid for k, e in zip(flow_names, cpu_flow)
+                       if k.startswith(("epe_sp", "epe_mv"))}}),
+            "test_flow_mask_pixels_differing": flips,
+            "test_flow_pixel_epe_bound": pixel_epe}
+        # the pose-scaled row divides by PoseExpNet's translation norms,
+        # which nets at random make small: recorded, not held
+        pose_row = [{"card": float(a), "cpu": float(e)} for a, e in
+                    zip(outs["test_disp"][0], cpu_disp[0])]
+    torch.cuda.empty_cache()
+    for row in rows:
+        emit(row)
+    emit({"phase": "eval_cli_vs_cpu", "gpu": gpu, "rtol": EVAL_RTOL,
+          "edge_pixels": EVAL_EDGE_PIXELS, "depth_valid_pixels": depth_valid,
+          "flow_valid_pixels": flow_valid, "trees_s": trees_s,
+          "cpu_runs_s": cpu_s, "phase_s": time.perf_counter() - t_phase,
+          **report, "test_disp_pose_scaled_row": pose_row})
+    return k1_paths
+
+
 def path_entry(path: str, rows, launches: int,
                per_shape: int = LAUNCHES_PER_SHAPE, more=()) -> dict:
     """A kernel's work on one run of a path: `per_shape` launches at each
@@ -1346,6 +1767,7 @@ def main() -> int:
         phase_resume(roots[128, 128], gpu)
         add_depth_val_scene(roots[256, 832], 256, 832, frames=8)
         cli = phase_train_cli(roots[256, 832], gpu, step_ms)
+    eval_k1 = phase_eval_cli(gpu)
 
     n_b2f, n_c6 = len(B2F_CASES), len(C6_CASES)
     corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
@@ -1389,6 +1811,12 @@ def main() -> int:
                            launches["Back2Future", "eval"][0]),
                 path_entry("FlowNetC6 eval forward", c6,
                            launches["FlowNetC6", "eval"][0])]
+            # an eval CLI run: each item's forward at the batch-1 shapes
+            corr_paths[kind] += [
+                path_entry(f"eval CLI {name}, {items} items", b1[flownet],
+                           k1, EVAL_K1_PER_ITEM[flownet]
+                           // len(b1[flownet]) * items)
+                for name, (k1, items, flownet) in eval_k1.items()]
     emit({"kernels": [
         kernel_entry("correlation_forward",
                      "cc_tpu_torch/ops/csrc/correlation.cu",

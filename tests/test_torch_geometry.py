@@ -1,7 +1,14 @@
 """cc_tpu_torch geometry vs cc_tpu on shared numpy inputs: rotations,
 projection in both padding modes, inverse_warp, pose2flow, flow2oob, the
 warp identity, the gradients of grid_sample, flow_warp and inverse_warp
-against jax.grad, and adaptive_avg_pool. Both sides are NHWC here."""
+against jax.grad, and adaptive_avg_pool. Both sides are NHWC here.
+Besides: the CPU's stand-in for border padding against torch's own border
+mode, and a CPU train step with a NaN pixel, dropped and not crashed."""
+import ast
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import jax
@@ -15,6 +22,9 @@ from cc_tpu_torch.ops import image as timg
 from tests.torch_port_util import assert_close
 
 torch.set_num_threads(2)
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
 
 # fp32 projections and trig through a few ops, evaluated in another order
 GEO_ATOL = 1e-5
@@ -186,3 +196,44 @@ def test_adaptive_avg_pool(in_hw, out_hw, channels):
     ref = jimg.adaptive_avg_pool(jnp.asarray(x), out_hw)
     out = timg.adaptive_avg_pool(_t(x), out_hw)
     assert_close(out, ref, POOL_ATOL, f"{in_hw}->{out_hw}")
+
+
+def test_border_sampling_on_the_cpu_equals_border_mode():
+    """On the CPU, border padding is the grid clamped to [-1, 1] (with no
+    gradient on and beyond the edges) sampled with zeros padding: the same
+    values and gradients as F.grid_sample's border mode, bit for bit, on
+    grids inside, outside and exactly on the edges."""
+    import torch.nn.functional as F
+    r = np.random.RandomState(13)
+    img = r.randn(2, 3, 9, 11).astype(np.float32)
+    grid = r.uniform(-1.3, 1.3, (2, 7, 8, 2)).astype(np.float32)
+    grid[0, 0, :4] = [[1, -1], [-1, 1], [1, 0.3], [-0.2, -1]]
+    cot = torch.from_numpy(r.randn(2, 3, 7, 8).astype(np.float32))
+    got = []
+    for fn in (lambda i, g: F.grid_sample(i, g, padding_mode="border",
+                                          align_corners=True),
+               lambda i, g: sampling.grid_sample(i, g, "border")):
+        i, g = _t(img).requires_grad_(), _t(grid).requires_grad_()
+        out = fn(i, g)
+        (cot * out).sum().backward()
+        got.append((out.detach(), i.grad, g.grad))
+    for name, a, e in zip(("value", "d img", "d grid"), *got):
+        assert torch.equal(a, e), name
+
+
+def test_nan_pixel_step_is_dropped_not_crashed():
+    """A train step on the CPU with one NaN pixel in a reference frame
+    (tests/torch_port_util.nan_pixel_step): F's border-padded feature
+    warps meet NaN locations, the gradients are not finite, and
+    skip_nonfinite_updates drops the step. In a subprocess, since torch's
+    CPU backward of border mode kills the process on a NaN location."""
+    script = ("import torch; torch.set_num_threads(2); "
+              "from torch_port_util import nan_pixel_step; "
+              "print(nan_pixel_step('cpu'))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, TESTS]))
+    res = subprocess.run([sys.executable, "-c", script], cwd=TESTS, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
+    got = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+    assert got == {"count": 0, "notfinite": 1, "step": 1,
+                   "loss_finite": False, "unchanged": True}, got

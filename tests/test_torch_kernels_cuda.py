@@ -3,8 +3,9 @@ the correlation forward (K1) and backward (K1'), the autograd Function that
 joins them, and the row gather (K2); and FlowNetC6 through them: its
 gradients on the card against the CPU's, and its train step's launches.
 Besides the kernels: device_prefetch's batches against the host's under a
-busy consumer, checkpoints moved between the card and the CPU, and the
-train CLI on the card against the same CLI on the CPU.
+busy consumer, checkpoints moved between the card and the CPU, the train
+CLI on the card against the same CLI on the CPU, and a train step with a
+NaN pixel (dropped, not crashed).
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports no JAX, so on a machine without JAX it runs without the
@@ -12,6 +13,12 @@ suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
+import ast
+import contextlib
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -244,21 +251,54 @@ def flownetc6_layer_errors(net, device) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def leaky_relu_slopes(masks: list, record: bool):
+    """F.leaky_relu with each call's slope chosen by a sign mask: with
+    `record`, the input's own (x > 0), appended to `masks` in call order,
+    which is leaky_relu itself; else the masks recorded before, taken in
+    the same order. Every LeakyReLU of the nets and FlowNetC6's functional
+    one on the cost volume go through F.leaky_relu."""
+    plain = torch.nn.functional.leaky_relu
+    recorded = iter(masks)
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        if record:
+            mask = x.detach() > 0
+            masks.append(mask.cpu())
+        else:
+            mask = next(recorded).to(x.device)
+        return torch.where(mask, x, x * negative_slope)
+
+    torch.nn.functional.leaky_relu = leaky_relu
+    try:
+        yield
+    finally:
+        torch.nn.functional.leaky_relu = plain
+
+
 def flownetc6_gradients(net, device) -> tuple[dict, dict, tuple]:
     """FlowNetC6 in training mode at 128x128, the six flows weighted by a
     fixed random cotangent: the gradients of both frames and of two stem
     layers on the CPU (plain correlation) and on `device`, and the K1 and
-    K1' launches of the second run."""
+    K1' launches of the second run.
+
+    Both runs take the CPU's LeakyReLU slopes (leaky_relu_slopes): cuDNN's
+    and the CPU's fp32 convolutions round apart by about 3e-6 of a layer's
+    largest entry, and a pre-activation within that of zero would
+    otherwise take the other slope on one device (FlowNetC6's conv3 at
+    torch seed 14: 8.5e-8 from zero, the gradient 0.284 off)."""
     torch.backends.cudnn.allow_tf32 = False
     x1, x2, cots = _flownetc6_inputs()
-    grads = []
+    grads, masks = [], []
     for dev in ("cpu", device):
         n = net.to(dev)
         n.zero_grad()
         a = x1.to(dev).detach().requires_grad_()
         b = x2.to(dev).detach().requires_grad_()
         tc.launches = tc.backward_launches = 0
-        sum((c.to(dev) * f).sum() for c, f in zip(cots, n(a, b))).backward()
+        with leaky_relu_slopes(masks, record=dev == "cpu"):
+            flows = n(a, b)
+        sum((c.to(dev) * f).sum() for c, f in zip(cots, flows)).backward()
         grads.append({"x1": a.grad.cpu(), "x2": b.grad.cpu(),
                       "conv3": n.conv3[0].weight.grad.cpu().clone(),
                       "conv3_1": n.conv3_1[0].weight.grad.cpu().clone()})
@@ -267,14 +307,36 @@ def flownetc6_gradients(net, device) -> tuple[dict, dict, tuple]:
 
 def test_flownetc6_gradients_match_cpu(cuda):
     """FlowNetC6's gradients (see flownetc6_gradients) on the card against
-    the CPU's: the second frame reaches the flows only through K1 and K1',
-    whose output gradient is a channel slice of a concatenation, permuted
-    to NHWC."""
+    the CPU's, both with the CPU's LeakyReLU slopes: the second frame
+    reaches the flows only through K1 and K1', whose output gradient is a
+    channel slice of a concatenation, permuted to NHWC."""
     cpu, card, launches = flownetc6_gradients(
         models.build("FlowNetC6").train(), cuda)
     assert launches == (1, 1)
     for k, e in cpu.items():
         assert_close(card[k], e, NET_RTOL * float(e.abs().max()), k)
+
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+def test_nan_pixel_step_on_the_card_is_dropped(cuda):
+    """The CPU test's batch with one NaN pixel
+    (torch_port_util.nan_pixel_step) through a train step on the card:
+    CUDA's border-padded warps (the CPU's stand-in is not used on the
+    card) give non-finite gradients and skip_nonfinite_updates drops the
+    step; the process does not crash. In a subprocess, as on the CPU."""
+    script = ("from torch_port_util import nan_pixel_step; "
+              "print(nan_pixel_step('cuda'))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(TESTS), TESTS]))
+    res = subprocess.run([sys.executable, "-c", script], cwd=TESTS, env=env,
+                         capture_output=True, text=True, timeout=600)
+    print(res.returncode, res.stdout[-500:], res.stderr[-2000:])
+    assert res.returncode == 0, res.returncode
+    got = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+    assert got == {"count": 0, "notfinite": 1, "step": 1,
+                   "loss_finite": False, "unchanged": True}, got
 
 
 def test_flownetc6_train_step_launches(cuda):

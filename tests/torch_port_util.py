@@ -1,8 +1,9 @@
 """Shared helpers for the cc_tpu_torch parity tests (tests/test_torch_*.py).
 
 The port's nets are NCHW and cc_tpu's are NHWC; these convert numpy arrays
-and torch tensors between the two, compare with a stated tolerance, and
-fill flax variable trees with seeded numpy values.
+and torch tensors between the two, compare with a stated tolerance, fill
+flax variable trees with seeded numpy values, write reference checkpoints
+of such values, and run a train step on a batch with a NaN pixel.
 """
 from __future__ import annotations
 
@@ -56,3 +57,59 @@ def draw_flax_variables(tree: dict, r: np.random.RandomState) -> dict:
             lo, hi = (0.5, 1.5) if k in ("scale", "var") else (-0.5, 0.5)
         out[k] = r.uniform(lo, hi, v.shape).astype(np.float32)
     return out
+
+
+def nan_pixel_step(device: str) -> dict:
+    """One train step of the port (Back2Future, skip_nonfinite_updates, a
+    128x128 batch of 2) on `device`, on a batch with one NaN pixel in a
+    reference frame: F's feature warps, which sample with border padding,
+    then meet NaN locations in the forward and the backward. Returns the
+    optimizer's counts and whether every parameter stayed as it was.
+    Run it in a subprocess: where a backward crashes, the process dies."""
+    from cc_tpu_torch.train import (
+        TrainConfig, build_train_step, make_models, make_optimizer,
+    )
+    torch.manual_seed(0)
+    cfg = TrainConfig(height=128, width=128, batch_size=2,
+                      skip_nonfinite_updates=True)
+    nets = make_models(cfg, device=device)
+    opt_state = make_optimizer(cfg).init(nets)
+    r = np.random.RandomState(0)
+    k = np.array([[115.0, 0, 64], [0, 115.0, 64], [0, 0, 1]], np.float32)
+    batch = {"tgt": r.rand(2, 128, 128, 3).astype(np.float32) * 2 - 1,
+             "refs": r.rand(2, 4, 128, 128, 3).astype(np.float32) * 2 - 1,
+             "intrinsics": np.stack([k, k]),
+             "intrinsics_inv": np.stack([np.linalg.inv(k)] * 2)}
+    batch["refs"][0, 2, 60, 70, 1] = np.nan
+    batch = {key: torch.from_numpy(v).to(device) for key, v in batch.items()}
+    before = [p.detach().clone() for p in nets.parameters()]
+    metrics = build_train_step(cfg, nets, opt_state)(batch)
+    return {"count": opt_state.count, "notfinite": opt_state.notfinite,
+            "step": opt_state.step,
+            "loss_finite": bool(torch.isfinite(metrics["loss"])),
+            "unchanged": all(torch.equal(a, p) for a, p in
+                             zip(before, nets.parameters()))}
+
+
+def save_drawn_checkpoint(path: str, arch: str, r: np.random.RandomState,
+                          **kw) -> None:
+    """A reference-format .pth.tar of cc_tpu's `arch` built with `kw`,
+    written by cc_tpu's exporter (save_torch_checkpoint): the variables'
+    structure from jax.eval_shape of the flax init (traced, not compiled),
+    their values drawn with numpy (draw_flax_variables). Imports JAX, which
+    the card's tests do not."""
+    import jax
+    import jax.numpy as jnp
+    from cc_tpu import models as jmodels
+    from cc_tpu.train.torch_export import save_torch_checkpoint
+    net = jmodels.build(arch, **kw)
+    img = jax.ShapeDtypeStruct((1, 64, 128, 3), jnp.float32)
+    if arch == "FlowNetC6":
+        args = (img, img)
+    else:
+        nref = 2 if arch == "Back2Future" else kw.get("nb_ref_imgs", 0)
+        args = (img, [img] * nref) if nref else (img,)
+    v = jax.eval_shape(lambda k, *a: net.init(k, *a, training=True),
+                       jax.random.PRNGKey(0), *args)
+    save_torch_checkpoint(path, arch, draw_flax_variables(v["params"], r),
+                          draw_flax_variables(v.get("batch_stats", {}), r))
