@@ -1,8 +1,10 @@
 """Carry weights across from cc_tpu: flax (params, batch_stats) numpy trees
 -> reference-format torch state dicts -> the port's nets; cc_tpu's whole
-train state, Adam's moments and counts too (load_cc_tpu_state); and the
-reference's own .pth.tar checkpoints, the train CLI's --pretrained-*
-(load_pretrained), whose keys are the port's parameter names already.
+train state, Adam's moments and counts too (load_cc_tpu_state), and the
+MNIST demo's params (load_cc_tpu_mnist_state); the reference's own
+.pth.tar checkpoints, the train CLI's --pretrained-* (load_pretrained),
+whose keys are the port's parameter names already; and a port net written
+back to such a file (save_torch_checkpoint), which the eval CLIs read.
 
 The key maps are copies of cc_tpu/train/torch_import.py's converters for the
 slice's nets (the port imports nothing of cc_tpu); the transforms are the
@@ -320,3 +322,41 @@ def load_pretrained(nets: nn.ModuleDict,
                 net = net.to(device).train(nets[name].training)
                 nets[name] = net
         load_reference_weights(net, sd, f"--pretrained-{name} {path}")
+
+
+def save_torch_checkpoint(path: str, net: nn.Module, epoch: int = 0) -> None:
+    """Write `net` as a reference-format .pth.tar, the counterpart of
+    cc_tpu/train/torch_export.py:126: {"epoch", "state_dict"} of CPU
+    tensors under the reference's keys, BatchNorm's num_batches_tracked 0
+    as cc_tpu writes it. load_pretrained and the eval CLIs' load_net_params
+    read it strictly."""
+    nbt = ".num_batches_tracked"
+    sd = {k: torch.zeros((), dtype=torch.int64) if k.endswith(nbt)
+          else v.detach().to("cpu", copy=True)
+          for k, v in net.state_dict().items()}
+    torch.save({"epoch": epoch, "state_dict": sd}, path)
+
+
+def lenet_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """cc_tpu's flax LeNet params (numpy) -> the port's LeNet state dict.
+    Convs go HWIO -> OIHW and denses transpose; fc1 reads features that
+    flax flattens NHWC (h, w, c) and torch NCHW (c, h, w), so its kernel
+    [1000, 40] is permuted through [h, w, c, o] -> [o, c, h, w]."""
+    conv = lambda k: np.transpose(np.asarray(k), (3, 2, 0, 1))
+    fc1 = np.asarray(params["Dense_0"]["kernel"]).reshape(5, 5, 40, 40)
+    sd = {"conv1.weight": conv(params["Conv_0"]["kernel"]),
+          "conv1.bias": params["Conv_0"]["bias"],
+          "conv2.weight": conv(params["Conv_1"]["kernel"]),
+          "conv2.bias": params["Conv_1"]["bias"],
+          "fc1.weight": fc1.transpose(3, 2, 0, 1).reshape(40, 1000),
+          "fc1.bias": params["Dense_0"]["bias"],
+          "fc2.weight": np.asarray(params["Dense_1"]["kernel"]).T,
+          "fc2.bias": params["Dense_1"]["bias"]}
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def load_cc_tpu_mnist_state(nets: nn.ModuleDict, params: dict) -> None:
+    """Fill the MNIST demo's nets {alice, bob, mod}, in place and strictly,
+    from cc_tpu's MnistState.params as numpy trees."""
+    for name, net in nets.items():
+        net.load_state_dict(lenet_state_from_flax(params[name]), strict=True)

@@ -83,7 +83,26 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    seconds per item and the host's share of them (a profiler of the
    card's kernels); test_disp and test_flow on the card against the same
    CLIs on the CPU.
-15. kernels: one entry per kernel; its launches, times and bound per run
+15. etl: raw KITTI through the ETL into the train CLI, then D exported:
+   a KITTI raw tree at KITTI's frame size (2 drives x 2 cameras x 10
+   1242x375 PNGs, oxts at 5 m/s, velodyne scans of 100,000 points,
+   KITTI's calibration files) through cc_tpu_torch.cli.prepare_train_data
+   (4 threads, --with-gt) at 832x256: the scenes, JPEGs, zoomed cam.txt,
+   seed 8964's split and the validation scene's GT depths checked, seconds
+   per frame; the train CLI on the dump (Back2Future at bench.py's point,
+   an epoch of 3 steps, depth validation, training images every step),
+   its K1 and K1' launches held to what its steps and forwards imply; D of
+   its checkpoint through weights.save_torch_checkpoint, loaded back
+   strictly by the eval CLIs' load_net_params, its output bit-equal to the
+   checkpoint's net's.
+16. mnist: the MNIST CC demo on MNIST IDX files at MNIST's sizes and SVHN
+   .mat files cut to 10,000/2,000: cli.mnist for an epoch of 200 steps
+   compete and one collaborate (batch 64), steps/s per epoch; a profiler
+   window of each step on a resident batch (the card's idle share); then
+   cli.mnist_eval of mnist_best.pt on the card and on the CPU: logits
+   within 1e-4 over the test sets, error rates equal but for samples
+   within 1e-4 of a tie (counted).
+17. kernels: one entry per kernel; its launches, times and bound per run
    of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -164,6 +183,14 @@ EVAL_K1_PER_ITEM = {"Back2Future": LAUNCHES_PER_SHAPE * len(B2F_CASES),
 EVAL_RTOL = 1e-3
 EVAL_EDGE_PIXELS = 3
 EVAL_ITEMS = 4
+# etl: frames a camera of each synthetic raw drive
+ETL_FRAMES = 10
+# mnist: SVHN's train and test sets cut to bound the phase (73,257 and
+# 26,032 in full); the card's logits against the CPU's, and the width
+# within which a logit counts as a tie (mnist_eval's rates may differ there)
+SVHN_SIZES = (10_000, 2_000)
+MNIST_LOGIT_ATOL = 1e-4
+MNIST_TIE = 1e-4
 
 
 def emit(obj) -> None:
@@ -1676,6 +1703,344 @@ def phase_eval_cli(gpu: str) -> dict:
     return k1_paths
 
 
+def synthetic_kitti_raw(root: str, frames: int, h: int = 375,
+                        w: int = 1242) -> str:
+    """A KITTI raw tree at KITTI's frame size for the ETL: one date, 2
+    drives x 2 cameras of `frames` PNGs (windows sliding over a smooth
+    random image), oxts at 5 m/s forward (every frame passes the 2 m/s
+    filter), KITTI's calibration files (2011_09_26's P_rect) and a
+    velodyne scan a frame of about 100,000 points: some 18,600 back-
+    projected from a pixel grid of the lower 60% of the frame at depths of
+    5-60 m, the rest around the car out of the camera's view. Returns root."""
+    r = np.random.RandomState(5)
+    date = "2011_09_26"
+    fx, cx, cy = 721.5377, 609.5593, 172.854
+    os.makedirs(os.path.join(root, date))
+    with open(os.path.join(root, date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write("R_rect_00: 1 0 0 0 1 0 0 0 1\n")
+        for cid, tx in (("02", 44.85728), ("03", -339.5242)):
+            f.write(f"P_rect_{cid}: {fx} 0 {cx} {tx} 0 {fx} {cy} 0.2163791 "
+                    "0 0 1 0.002745884\n")
+    r_vc = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    t_vc = np.array([-4.069766e-03, -7.631618e-02, -2.717806e-01])
+    with open(os.path.join(root, date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write("R: " + " ".join(map(str, r_vc.ravel())) + "\nT: "
+                + " ".join(map(str, t_vc)) + "\n")
+    us, vs = np.meshgrid(np.arange(4, w - 4, 5.0), np.arange(150, h - 2, 3.0))
+    us, vs = us.ravel(), vs.ravel()
+    around = 100_000 - len(us)
+    for drive in ("0001", "0005"):
+        d = os.path.join(root, date, f"{date}_drive_{drive}_sync")
+        os.makedirs(os.path.join(d, "oxts", "data"))
+        os.makedirs(os.path.join(d, "velodyne_points", "data"))
+        bases = {cid: _smooth(r, h + frames, w + 2 * frames)
+                 for cid in ("02", "03")}
+        for i in range(frames):
+            for cid, base in bases.items():
+                _png(os.path.join(d, f"image_{cid}", "data", f"{i:010d}.png"),
+                     base[i:i + h, 2 * i:2 * i + w])
+            row = [0.0] * 30
+            row[8:11] = [5.0, 0.1, 0.0]  # forward, left, up m/s
+            with open(os.path.join(d, "oxts", "data", f"{i:010d}.txt"),
+                      "w") as f:
+                f.write(" ".join(map(str, row)) + "\n")
+            z = r.uniform(5.0, 60.0, us.shape)
+            cam = np.stack([(us - cx) * z / fx, (vs - cy) * z / fx, z], 1)
+            # velodyne x forward, y left, z up: 60-300 degrees off the
+            # heading is behind the car or beside the camera's view
+            az = np.deg2rad(r.uniform(60, 300, around))
+            rng = r.uniform(5.0, 80.0, around)
+            side = np.stack([rng * np.cos(az), rng * np.sin(az),
+                             r.uniform(-1.7, 2.0, around)], 1)
+            velo = np.concatenate([(cam - t_vc) @ r_vc, side])
+            pts = np.concatenate([velo, r.uniform(0, 1, (len(velo), 1))], 1)
+            pts.astype(np.float32).tofile(os.path.join(
+                d, "velodyne_points", "data", f"{i:010d}.bin"))
+    return root
+
+
+def phase_etl(gpu: str, step_ms: float, h: int = 256,
+              w: int = 832) -> tuple[int, int, int, int, int]:
+    """Raw KITTI through the ETL into the train CLI, then D exported in the
+    reference's format. The ETL (cc_tpu_torch.cli.prepare_train_data,
+    4 threads, --with-gt) dumps synthetic_kitti_raw's 2 drives x 2 cameras
+    of 1242x375 frames at w x h (832x256): 4 scenes of ETL_FRAMES JPEGs with the
+    zoomed cam.txt; seed 8964's split puts the second sorted scene alone in
+    val.txt, with its GT depths (projected velodyne points), the train
+    scenes without. The train CLI at bench.py's point on the dump: an epoch
+    of 3 steps with depth validation and training images every step, its
+    K1 and K1' launches held to _cli_expected's. Then D of the checkpoint
+    through weights.save_torch_checkpoint, loaded back by the eval CLIs'
+    load_net_params: its output on a dumped image equals, bit for bit, the
+    output of the net the checkpoint held. Returns the epoch's (K1, K1',
+    steps, training-image forwards, validation items)."""
+    import cv2
+    from cc_tpu_torch.cli import prepare_train_data
+    from cc_tpu_torch.cli.test_disp import load_net_params
+    from cc_tpu_torch.weights import save_torch_checkpoint
+    n, drives = ETL_FRAMES, 2
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = synthetic_kitti_raw(os.path.join(tmp, "raw"), n)
+        tree_s = time.perf_counter() - t0
+        dump = os.path.join(tmp, "dump")
+        t0 = time.perf_counter()
+        prepare_train_data.main([raw, "--dataset-format", "kitti",
+                                 "--dump-root", dump, "--with-gt",
+                                 "--width", str(w), "--height", str(h),
+                                 "--num-threads", "4"])
+        etl_s = time.perf_counter() - t0
+        scenes = sorted(e for e in os.listdir(dump)
+                        if os.path.isdir(os.path.join(dump, e)))
+        val = open(os.path.join(dump, "val.txt")).read().split()
+        failures = []
+        if len(scenes) != 2 * drives or val != scenes[1:2]:
+            failures.append(f"scenes {scenes}, val.txt {val}")
+        points, cams = [], {}
+        for s in scenes:
+            d = os.path.join(dump, s)
+            jpgs = sorted(f for f in os.listdir(d) if f.endswith(".jpg"))
+            npys = sorted(f for f in os.listdir(d) if f.endswith(".npy"))
+            shapes = {cv2.imread(os.path.join(d, f)).shape for f in jpgs}
+            if len(jpgs) != n or shapes != {(h, w, 3)}:
+                failures.append(f"{s}: {len(jpgs)} JPEGs of {shapes}")
+            cams[s] = [float(v) for v in
+                       open(os.path.join(d, "cam.txt")).read().split(",")]
+            if s in val:
+                points = [int((np.load(os.path.join(d, f)) > 0).sum())
+                          for f in npys]
+                # 18,600 grid points, fewer where they share a pixel
+                if len(npys) != n or min(points) < min(10_000, h * w // 4):
+                    failures.append(f"{s}: GT {len(npys)} .npy files, "
+                                    f"points {points}")
+            elif npys:
+                failures.append(f"train scene {s} kept {len(npys)} GT files")
+        zx, zy = w / 1242, h / 375
+        want = [721.5377 * zx, 0, 609.5593 * zx, 0, 721.5377 * zy,
+                172.854 * zy, 0, 0, 1]
+        if any(not np.allclose(c, want, atol=1e-5) for c in cams.values()):
+            failures.append(f"cam.txt {cams}, expected {want}")
+        if failures:
+            raise AssertionError("etl: " + "; ".join(failures))
+
+        os.makedirs(os.path.join(tmp, "run"))
+        os.chdir(os.path.join(tmp, "run"))
+        try:
+            bench = lambda k: str(BENCH[k])
+            argv = [dump, "--name", "etl", "--height", str(h), "--width",
+                    str(w), "-b", str(B), "--epochs", "1", "--epoch-size",
+                    "3", "--with-depth-gt", "-f", "1", "-j", "4",
+                    "--seed", "0", "--print-freq", "1",
+                    "-pc", bench("cam_photo_loss_weight"),
+                    "-m", bench("mask_loss_weight"),
+                    "-s", bench("smooth_loss_weight"),
+                    "-pf", bench("flow_photo_loss_weight"),
+                    "-c", bench("consensus_loss_weight"),
+                    "-wssim", bench("wssim"), "--lr", bench("lr"),
+                    "--smoothness-type", BENCH["smoothness_type"]]
+            row = _cli_run("Back2Future on the ETL dump", argv,
+                           "Back2Future", 0, n, 1, True, gpu, step_ms)
+
+            cfg = TrainConfig(height=h, width=w)
+            nets = make_models(cfg, device="cuda")
+            load_checkpoint("checkpoints/etl", nets, make_optimizer(cfg)
+                            .init(nets))
+            path = os.path.abspath("dispnet_exported.pth.tar")
+            t0 = time.perf_counter()
+            save_torch_checkpoint(path, nets["disp"], epoch=1)
+            export_s = time.perf_counter() - t0
+            loaded = load_net_params(path, cfg.dispnet, torch.device("cuda"))
+            img = cv2.cvtColor(cv2.imread(os.path.join(
+                dump, val[0], "0000000000.jpg")), cv2.COLOR_BGR2RGB)
+            x = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)
+            x = x.permute(2, 0, 1)[None].contiguous().cuda()
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                with torch.no_grad():
+                    held = nets["disp"].eval()(x)
+                    back = loaded(x)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            sd = torch.load(path, map_location="cpu",
+                            weights_only=True)["state_dict"]
+            nbt = [k for k in sd if k.endswith("num_batches_tracked")]
+            export = {"file_bytes": os.path.getsize(path),
+                      "export_s": export_s, "keys": len(sd),
+                      "num_batches_tracked_all_0": all(
+                          int(sd[k]) == 0 for k in nbt),
+                      "disp_shape": list(held.shape),
+                      "bit_equal": bool(torch.equal(held, back)),
+                      "max_abs_diff": float((held - back).abs().max())}
+            if not (export["bit_equal"] and export["num_batches_tracked_all_0"]
+                    and sd.keys() == nets["disp"].state_dict().keys()):
+                raise AssertionError(f"etl: D exported: {export}")
+        finally:
+            os.chdir(cwd)
+        del nets, loaded
+    torch.cuda.empty_cache()
+    row.update(phase="etl", raw_tree_s=tree_s, etl_s=etl_s,
+               etl_s_per_frame=etl_s / (2 * drives * n),
+               etl_frames=2 * drives * n, etl_threads=4, scenes=scenes,
+               val=val, val_gt_points_per_frame=points,
+               cam_txt=cams[scenes[0]], export_disp=export,
+               phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    return (row["k1_launches"], row["k1b_launches"], row["steps"],
+            row["training_image_forwards"], row["flow_validation_items"])
+
+
+def synthetic_mnist(root: str) -> str:
+    """MNIST as IDX files at its real sizes (60,000 / 10,000) and SVHN .mat
+    files cut to SVHN_SIZES (73,257 / 26,032 in full), from a seeded
+    generator: each digit a class-dependent bright square on noise, so that
+    the nets learn something and their logits are not all near a tie."""
+    import struct
+    from scipy.io import savemat
+    r = np.random.RandomState(11)
+
+    def digits(n, size):
+        labels = r.randint(0, 10, n)
+        img = r.randint(0, 80, (n, size, size)).astype(np.uint8)
+        for k in range(10):
+            img[labels == k, 2 + 2 * k:10 + 2 * k, 4:12] = 255
+        return img, labels
+
+    os.makedirs(os.path.join(root, "mnist"))
+    os.makedirs(os.path.join(root, "svhn"))
+    for prefix, n in (("train", 60_000), ("t10k", 10_000)):
+        img, labels = digits(n, 28)
+        with open(os.path.join(root, "mnist", f"{prefix}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28) + img.tobytes())
+        with open(os.path.join(root, "mnist", f"{prefix}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">II", 2049, n)
+                    + labels.astype(np.uint8).tobytes())
+    for split, n in zip(("train", "test"), SVHN_SIZES):
+        img, labels = digits(n, 32)
+        labels[labels == 0] = 10  # SVHN's 0
+        savemat(os.path.join(root, "svhn", f"{split}_32x32.mat"),
+                {"X": np.repeat(img.transpose(1, 2, 0)[:, :, None], 3, 2),
+                 "y": labels.astype(np.uint8)[:, None]})
+    return root
+
+
+def _near_ties(alice, bob, mod) -> dict:
+    """Per rate (total, alice, bob), the samples whose prediction a change
+    of MNIST_TIE in a logit could flip: the top two of Alice's or Bob's
+    logits, or the moderator's logit against 0, within MNIST_TIE."""
+    gap = lambda z: np.diff(np.sort(z, 1)[:, -2:], axis=1)[:, 0] < MNIST_TIE
+    a, b, m = gap(alice), gap(bob), np.abs(mod) < MNIST_TIE
+    return {"total": int((a | b | m).sum()), "alice": int(a.sum()),
+            "bob": int(b.sum())}
+
+
+def phase_mnist(gpu: str) -> None:
+    """The MNIST CC demo on the card: cli.mnist on synthetic_mnist's files
+    (--dataset both, batch 64, 2 epochs of 200 steps: compete, then
+    collaborate), steps/s per epoch; a profiler window of each step on a
+    resident batch (its idle share); then cli.mnist_eval of mnist_best.pt
+    on the card and at --device cpu: the error rates equal but for the
+    samples within MNIST_TIE of a tie (counted), and the logits of the
+    checkpoint's nets on the card within MNIST_LOGIT_ATOL of the CPU's
+    over the whole test set."""
+    from cc_tpu_torch.cli import mnist as mnist_cli
+    from cc_tpu_torch.cli import mnist_eval
+    from cc_tpu_torch.mnist import train as mnist
+    from cc_tpu_torch.mnist.data import iterate_batches
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = synthetic_mnist(os.path.join(tmp, "data"))
+        data_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(tmp, "run"))
+        os.chdir(os.path.join(tmp, "run"))
+        try:
+            t0 = time.perf_counter()
+            records = mnist_cli.main([data, "--name", "mnist", "--dataset",
+                                      "both", "-b", "64", "--epochs", "2",
+                                      "--epoch-size", "200"])
+            cli_s = time.perf_counter() - t0
+            best = os.path.abspath("checkpoints/mnist/mnist_best.pt")
+            t0 = time.perf_counter()
+            errors = {d: mnist_eval.main([data, "--checkpoint", best,
+                                          "--device", d])
+                      for d in ("cuda", "cpu")}
+            eval_s = time.perf_counter() - t0
+            args = mnist_cli.parser.parse_args([data, "--name", "x"])
+            test_x, test_y = mnist_cli.load_dataset(args, train=False)
+            train_x, train_y = mnist_cli.load_dataset(args, train=True)
+            out = {}
+            for d in ("cuda", "cpu"):
+                nets = mnist.load_nets(best, mnist.models(d))
+                parts = [mnist.logits(nets, img) for img, _ in
+                         iterate_batches(test_x, test_y, 64, shuffle=False,
+                                         drop_last=False)]
+                out[d] = [torch.cat(p).cpu().numpy() for p in zip(*parts)]
+        finally:
+            os.chdir(cwd)
+
+    logit_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(out["cuda"], out["cpu"]))
+    ties = _near_ties(*out["cpu"])
+    n_test = len(test_y)
+    rate_diff = {k: abs(a - b) * n_test for k, a, b in
+                 zip(("total", "alice", "bob"), errors["cuda"],
+                     errors["cpu"])}
+    failures = []
+    if logit_err > MNIST_LOGIT_ATOL:
+        failures.append(f"logits differ by {logit_err}")
+    if any(rate_diff[k] > ties[k] + 1e-6 for k in ties):
+        failures.append(f"error rates {errors} differ by {rate_diff} "
+                        f"samples, near ties {ties}")
+    if [r["mode"] for r in records] != ["compete", "collaborate"] or \
+            any(r["steps"] != 200 or not np.isfinite(r["loss"])
+                for r in records):
+        failures.append(f"epochs {records}")
+
+    # a profiler window of each step on a resident batch, from a fresh
+    # state: the card's idle share of the CLI's steps
+    cfg = mnist.MnistConfig()
+    state = mnist.init_mnist_state(cfg, "cuda")
+    img, tgt = train_x[:64], train_y[:64]
+    window = {}
+    for name, step in (("compete", mnist.make_compete_step(cfg)),
+                       ("collaborate", mnist.make_collaborate_step(cfg))):
+        run = lambda: step(state, img, tgt)
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        ms = statistics.median(timed_windows(run, 50))
+        prof = profile_breakdown(run, 10, ms, f"MNIST {name} step, b64")
+        window[name] = {"ms_per_step": ms, "steps_per_s": 1e3 / ms,
+                        "kernel_ms": prof["kernel_ms"],
+                        "idle_share": prof["idle_share"],
+                        "cuda_runtime_calls": prof["cuda_runtime_calls"],
+                        "top": prof["top"][:5]}
+    row = {"phase": "mnist", "gpu": gpu,
+           "data": "MNIST IDX 60000/10000 at its real sizes; SVHN .mat "
+                   f"cut to {SVHN_SIZES[0]}/{SVHN_SIZES[1]} of 73257/26032",
+           "argv": "--dataset both -b 64 --epochs 2 --epoch-size 200",
+           "epochs": [{"mode": r["mode"], "steps": r["steps"],
+                       "seconds": r["seconds"],
+                       "steps_per_s": r["steps"] / r["seconds"],
+                       "loss": r["loss"], "errors": r["errors"]}
+                      for r in records],
+           "cli_s": cli_s, "data_s": data_s, "eval_s_card_and_cpu": eval_s,
+           "eval_errors": errors, "test_samples": n_test,
+           "rate_diff_samples": rate_diff, "near_ties": ties,
+           "tie_width": MNIST_TIE, "logits_max_abs_diff": logit_err,
+           "logit_atol": MNIST_LOGIT_ATOL, "resident_step_window": window,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if failures:
+        raise AssertionError("mnist: " + "; ".join(failures))
+
+
 def path_entry(path: str, rows, launches: int,
                per_shape: int = LAUNCHES_PER_SHAPE, more=()) -> dict:
     """A kernel's work on one run of a path: `per_shape` launches at each
@@ -1768,6 +2133,8 @@ def main() -> int:
         add_depth_val_scene(roots[256, 832], 256, 832, frames=8)
         cli = phase_train_cli(roots[256, 832], gpu, step_ms)
     eval_k1 = phase_eval_cli(gpu)
+    cli["Back2Future ETL dump"] = phase_etl(gpu, step_ms["Back2Future"])
+    phase_mnist(gpu)
 
     n_b2f, n_c6 = len(B2F_CASES), len(C6_CASES)
     corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
@@ -1804,7 +2171,9 @@ def main() -> int:
             cli_entry("Back2Future train CLI epoch, --fix-flownet",
                       "Back2Future fix_flownet", "Back2Future"),
             cli_entry("FlowNetC6 train CLI epoch", "FlowNetC6",
-                      "FlowNetC6")]
+                      "FlowNetC6"),
+            cli_entry("Back2Future train CLI epoch on an ETL dump",
+                      "Back2Future ETL dump", "Back2Future")]
         if kind == "fwd":
             corr_paths[kind] += [
                 path_entry("Back2Future eval forward", b2f,

@@ -4,8 +4,9 @@ joins them, and the row gather (K2); and FlowNetC6 through them: its
 gradients on the card against the CPU's, and its train step's launches.
 Besides the kernels: device_prefetch's batches against the host's under a
 busy consumer, checkpoints moved between the card and the CPU, the train
-CLI on the card against the same CLI on the CPU, and a train step with a
-NaN pixel (dropped, not crashed).
+CLI on the card against the same CLI on the CPU, a train step with a NaN
+pixel (dropped, not crashed), and the MNIST demo's steps on the card
+against the CPU's.
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports no JAX, so on a machine without JAX it runs without the
@@ -555,6 +556,43 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
             torch.device(dst).type
         same(saved, loaded)
 
+
+# The MNIST demo's steps on the card against the CPU's: fp32 losses of
+# LeNets summed in another order by cuDNN and oneDNN, relative to each
+# metric; Adam moves a parameter by about lr*sign(grad) a step, so the two
+# may differ by 2*lr a step where a near-zero gradient takes the other sign
+MNIST_METRIC_RTOL = 1e-4
+MNIST_LR = 1e-3
+
+
+def test_mnist_steps_on_the_card_match_the_cpu(cuda):
+    """4 MNIST CC steps, compete and collaborate in turns, from the same
+    weights and batches on the card and on the CPU: the metrics, both
+    optimizers' counts, and every parameter."""
+    from cc_tpu_torch.mnist import train as mnist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mnist.MnistConfig(lr=MNIST_LR)
+    states = [mnist.init_mnist_state(cfg, d, torch.Generator().manual_seed(0))
+              for d in (cuda, "cpu")]
+    steps = (mnist.make_compete_step(cfg), mnist.make_collaborate_step(cfg))
+    r = np.random.RandomState(0)
+    for i in range(4):
+        target = r.randint(0, 10, 64)
+        img = r.rand(64, 28, 28, 1).astype(np.float32) * 0.1
+        for j, t in enumerate(target):  # a class-dependent square
+            img[j, t:t + 8, t:t + 8, 0] += 1.0
+        card, cpu = (steps[i % 2](st, img, target) for st in states)
+        for k, e in cpu.items():
+            e = float(e)
+            assert abs(float(card[k]) - e) <= MNIST_METRIC_RTOL * max(1, abs(e)), (i, k)
+    a, b = states
+    assert (a.opt_compete.count, a.opt_collaborate.count, a.step) == \
+        (b.opt_compete.count, b.opt_collaborate.count, b.step) == (2, 2, 4)
+    for n in mnist.NETS:
+        for (k, x), y in zip(a.nets[n].state_dict().items(),
+                             b.nets[n].state_dict().values()):
+            assert_close(x, y, 2 * MNIST_LR * 4 + 1e-6, f"{n}.{k}")
 
 if __name__ == "__main__":
     # FlowNetC6's gradients on the card against the CPU's, for the nets of

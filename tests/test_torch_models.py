@@ -8,6 +8,7 @@ included, so that eval-mode BN is exercised; the weights go to the port
 through cc_tpu_torch.weights, whose state dict must equal cc_tpu's
 export_state_dict exactly.
 """
+import io
 import os
 
 import numpy as np
@@ -22,6 +23,7 @@ from cc_tpu_torch import models as tmodels
 from cc_tpu_torch.weights import (
     load_flax_weights, load_pretrained, state_dict_from_flax,
 )
+from cc_tpu_torch.weights import save_torch_checkpoint as save_port_checkpoint
 from tests.torch_port_util import (
     assert_close, draw_flax_variables, nchw_to_nhwc, nhwc_to_nchw,
 )
@@ -128,6 +130,31 @@ def test_pretrained_checkpoint_loads_bit_for_bit(flax_vars, arch, tmp_path):
     os.remove(path)
     _assert_same_weights(nets["net"], load_flax_weights(
         tmodels.build(name, **kw), name, params, stats))
+
+
+@pytest.mark.parametrize("arch", ARCHS + VARIANTS)
+def test_save_torch_checkpoint_equals_cc_tpus(flax_vars, arch):
+    """weights.save_torch_checkpoint of a net loaded from drawn variables
+    writes what cc_tpu's save_torch_checkpoint writes of those variables:
+    the same epoch, keys, dtypes and values (num_batches_tracked 0, though
+    the net counted batches), so it loads as test_pretrained_checkpoint_
+    loads_bit_for_bit loads cc_tpu's. The files are written to memory."""
+    _, params, stats = flax_vars[arch]
+    name, kw = _arch(arch)
+    net = load_flax_weights(tmodels.build(name, **kw), name, params, stats)
+    for k, v in net.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            v.fill_(7)
+    mine, ref = io.BytesIO(), io.BytesIO()
+    save_port_checkpoint(mine, net, epoch=3)
+    save_torch_checkpoint(ref, name, params, stats, epoch=3)
+    a, b = (torch.load(io.BytesIO(f.getvalue()), map_location="cpu",
+                       weights_only=True) for f in (mine, ref))
+    assert a["epoch"] == b["epoch"] == 3
+    sa, sb = a["state_dict"], b["state_dict"]
+    assert sa.keys() == sb.keys()
+    for k in sb:
+        assert sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]), k
 
 
 def test_pretrained_drops_prefix_and_batch_counts(flax_vars, tmp_path):

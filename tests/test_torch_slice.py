@@ -1,6 +1,7 @@
 """The port's eval forward against cc_tpu's build_forward_eval, key by key,
 on the same weights and batch; the uint8 normalization; the device default;
-and that cc_tpu_torch imports nothing of JAX or cc_tpu."""
+and that cc_tpu_torch imports nothing of JAX or cc_tpu, nor orbax or
+joblib, which the card's machine does not have."""
 import os
 import pkgutil
 import re
@@ -107,7 +108,7 @@ def test_entry_point_defaults_to_cuda():
 
 _BLOCK_AND_IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = {"jax", "jaxlib", "flax", "optax", "cc_tpu"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "joblib", "cc_tpu"}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -137,7 +138,8 @@ def test_package_imports_without_jax_or_cc_tpu():
 
 def test_package_sources_name_no_jax_or_cc_tpu():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|cc_tpu)(\.|\s|$)", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|joblib|cc_tpu)"
+        r"(\.|\s|$)", re.M)
     root = os.path.join(REPO, "cc_tpu_torch")
     hits = []
     for dirpath, _, files in os.walk(root):
