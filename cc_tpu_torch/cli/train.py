@@ -13,6 +13,14 @@ Usage (one command per phase of the protocol, --resume between them):
 It runs on the GPU; --device cpu runs it on the CPU, with the correlation's
 plain PyTorch version in place of its CUDA kernels. Checkpoints are
 checkpoints/EXP/checkpoint.pt and best.pt (train/checkpoint.py).
+
+Data parallel over N processes, one device each (parallel/distributed.py):
+  python -m torch.distributed.run --nproc-per-node N \\
+      -m cc_tpu_torch.cli.train DATA --name EXP ...
+Each process loads its rows of every global batch of -b rows, which N must
+divide; the steps are cc_tpu's on the global batch. Only process 0 writes
+the recorder line, the logs, training images and checkpoints, and
+validates; --resume loads on every process from a shared directory.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from cc_tpu_torch.device import resolve_device
 from cc_tpu_torch.eval.composite import composite_flow, rigidity_masks
 from cc_tpu_torch.geometry.warp import pose2flow
 from cc_tpu_torch.losses.metrics import compute_all_epes, compute_depth_errors
+from cc_tpu_torch.parallel import distributed, mesh
 from cc_tpu_torch.train import (
     TrainConfig, build_train_step, forward_eval, load_checkpoint, make_models,
     make_optimizer, save_checkpoint,
@@ -303,18 +312,25 @@ def _log_training_output(writer, cfg, nets, batch, n_iter):
                      n_iter)
 
 
-def _check_flags(args, cfg) -> torch.device:
-    """Flag errors, raised before any side effect; returns the device."""
+class _NullLogger:
+    """The summary and CSV writers of a process other than the primary."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    add_image = append = close = add_scalar
+
+
+def _check_flags(args, cfg) -> slice | None:
+    """Flag and launch errors, raised before any side effect (a batch that
+    the process count does not divide among them); returns the rows of
+    each global batch this process loads (None: all of them)."""
     if args.h2d == "uint8" and args.data_normalization == "local":
         raise ValueError("--h2d uint8 requires --data-normalization global "
                          "(local stats are a host-side joint reduction)")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: a multi-process launch is not ported yet "
-            "(it would train one replica per process, each alone)")
     check_ported(cfg)  # bf16, PoseExpNet as C
-    return resolve_device(args.device)
+    resolve_device(args.device)
+    return mesh.batch_slice(args.batch_size)
 
 
 def main(argv=None) -> list[dict]:
@@ -324,10 +340,17 @@ def main(argv=None) -> list[dict]:
     training, validations and checkpoint."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = _check_flags(args, cfg)
-
-    with open("experiment_recorder.md", "a") as f:
-        f.write("\npython3 " + " ".join(sys.argv))
+    rows = _check_flags(args, cfg)
+    # a torchrun launch: join it before any CUDA use or file, and create the
+    # communicators while the processes are aligned
+    launched = distributed.initialize(args.device)
+    device = distributed.local_device(args.device)
+    if launched:
+        distributed.warmup_collectives(device)
+    primary = distributed.is_primary()
+    if primary:
+        with open("experiment_recorder.md", "a") as f:
+            f.write("\npython3 " + " ".join(sys.argv))
 
     # the reference trains in full fp32: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,8 +359,12 @@ def main(argv=None) -> list[dict]:
           f"(--matmul-precision {args.matmul_precision} changes nothing)")
 
     save_path = os.path.join("checkpoints", args.name)
-    os.makedirs(save_path, exist_ok=True)
+    if primary:
+        os.makedirs(save_path, exist_ok=True)
     print(f"=> will save everything to {save_path}")
+    if launched:
+        print(f"=> {distributed.process_count()} process(es) on "
+              f"{torch.distributed.get_backend()}")
 
     norm = args.data_normalization
     train_tf, plane = train_pipeline(norm, with_rotation=not args.fix_flownet,
@@ -356,14 +383,15 @@ def main(argv=None) -> list[dict]:
         train_set.samples = train_set.samples[:32]
     print(f"{len(train_set)} samples in {len(train_set.scenes)} train scenes")
 
+    # validation runs on the primary alone (it is not a collective)
     val_depth_loader = None
-    if args.with_depth_gt:
+    if args.with_depth_gt and primary:
         val_set = ValidationSet(args.data.replace("cityscapes", "kitti"),
                                 transform=valid_tf)
         val_depth_loader = DataLoader(val_set, args.batch_size,
                                       num_workers=args.workers)
     val_flow_loader = None
-    if args.with_flow_gt:
+    if args.with_flow_gt and primary:
         val_flow_set = ValidationFlow(root=args.kitti_dir,
                                       sequence_length=args.sequence_length,
                                       transform=valid_flow_tf,
@@ -372,7 +400,8 @@ def main(argv=None) -> list[dict]:
                                      num_workers=args.workers)
 
     train_loader = DataLoader(train_set, args.batch_size, shuffle=True,
-                              num_workers=args.workers, seed=args.seed)
+                              num_workers=args.workers, seed=args.seed,
+                              batch_slice=rows)
     epoch_size = args.epoch_size or len(train_loader)
 
     print("=> creating models")
@@ -386,20 +415,25 @@ def main(argv=None) -> list[dict]:
     if args.resume:
         print("=> resuming from checkpoint")
         load_checkpoint(save_path, nets, opt_state)
+    # the replicas start from process 0's weights and BatchNorm stats
+    distributed.broadcast_([*nets.parameters(), *nets.buffers()])
     step = build_train_step(cfg, nets, opt_state)
 
-    writer = SummaryLogger(save_path)
     output_writers = []
-    if args.log_output:  # 3 extra valid/N writers (train.py:157-160)
-        output_writers = [SummaryLogger(os.path.join(save_path, "valid",
-                                                     str(i)))
-                          for i in range(3)]
-    summary_csv = CsvLogger(os.path.join(save_path, args.log_summary),
-                            ["train_loss", "validation_loss"])
-    full_csv = CsvLogger(
-        os.path.join(save_path, args.log_full),
-        ["train_loss", "photo_cam_loss", "photo_flow_loss",
-         "explainability_loss", "smooth_loss"])
+    if primary:
+        writer = SummaryLogger(save_path)
+        if args.log_output:  # 3 extra valid/N writers (train.py:157-160)
+            output_writers = [SummaryLogger(os.path.join(save_path, "valid",
+                                                         str(i)))
+                              for i in range(3)]
+        summary_csv = CsvLogger(os.path.join(save_path, args.log_summary),
+                                ["train_loss", "validation_loss"])
+        full_csv = CsvLogger(
+            os.path.join(save_path, args.log_full),
+            ["train_loss", "photo_cam_loss", "photo_flow_loss",
+             "explainability_loss", "smooth_loss"])
+    else:
+        writer = summary_csv = full_csv = _NullLogger()
 
     # 3-bar fixed-position terminal UI (reference logger.py:6-59,
     # train.py:325-327); plain prints when stdout is not a TTY
@@ -422,11 +456,12 @@ def main(argv=None) -> list[dict]:
         feed = device_prefetch(iter(train_loader), device)
         for i, batch in enumerate(itertools.islice(feed, epoch_size)):
             metrics = step(batch)
-            if (args.training_output_freq > 0
+            if (primary and args.training_output_freq > 0
                     and n_iter % args.training_output_freq == 0):
                 _log_training_output(writer, cfg, nets, batch, n_iter)
             # the train loss averages every step (train.py:563-576); the
-            # per-step losses stay on the device until the epoch ends
+            # per-step losses (global in a launch) stay on the device until
+            # the epoch ends
             epoch_losses.append(metrics["loss"])
             if i > 0 and n_iter % args.print_freq == 0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -494,6 +529,7 @@ def main(argv=None) -> list[dict]:
     logger.epoch_bar.finish()
     for w in [writer, *output_writers]:
         w.close()
+    distributed.shutdown()
     print("=> done")
     return records
 

@@ -15,6 +15,7 @@ from cc_tpu_torch.geometry.warp import inverse_warp, pose2flow
 from cc_tpu_torch.losses.charbonnier import mean32, robust_l1
 from cc_tpu_torch.losses.ssim import ssim
 from cc_tpu_torch.ops.image import adaptive_avg_pool
+from cc_tpu_torch.parallel import distributed
 
 
 def occlusion_masks(flow_bw: torch.Tensor, flow_fw: torch.Tensor):
@@ -48,14 +49,19 @@ def _valid_pixels(warped: torch.Tensor) -> torch.Tensor:
 
 
 def _oob_norm(valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(numel / max(sum(valid), 1), sum(valid) > 0).
+    """(numel / max(sum(valid), 1), sum(valid) > 0), over the global batch.
 
     valid is {0,1}-valued, so the barrier equals the reference's
     numel()/sum() wherever that is defined, and the gate is 1 there. For a
     warp wholly out of bounds the reference's loss is inf; here the gate
-    zeroes the whole per-ref term (cc_tpu/losses/photometric.py:65-87)."""
-    s = valid.float().sum()
-    return valid.numel() / s.clamp_min(1.0), (s > 0).float()
+    zeroes the whole per-ref term (cc_tpu/losses/photometric.py:65-87).
+    In a multi-process launch the sum and the count are the global
+    batch's (each process holds an equal share of its rows), as in
+    cc_tpu's step with the batch sharded over the mesh; no gradient flows
+    through `valid`."""
+    s = distributed.all_reduce_sum(valid.float().sum())
+    n = valid.numel() * distributed.process_count()
+    return n / s.clamp_min(1.0), (s > 0).float()
 
 
 def _pool_to(img: torch.Tensor, h: int, w: int) -> torch.Tensor:

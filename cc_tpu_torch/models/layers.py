@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cc_tpu_torch.parallel import distributed
+
 
 def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
          bias: bool = True, pad: int | None = None) -> nn.Conv2d:
@@ -43,20 +45,46 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased batch variance, as flax's BatchNorm in cc_tpu does
     (cc_tpu/models/layers.py:314-315); torch's own moves it toward the
     unbiased one. Names, parameters and buffers are nn.BatchNorm2d's, so
-    reference-format state dicts still load with strict=True."""
+    reference-format state dicts still load with strict=True.
+
+    In a multi-process launch (parallel/distributed.py) the training
+    forward normalizes by the statistics of the global batch, as cc_tpu's
+    step does with its batch sharded over the mesh: the per-channel sums
+    and counts, then the sums of squared deviations from the global mean,
+    are summed over the processes, with autograd through the sums, and
+    every process moves its running stats by the same global values."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if distributed.process_count() > 1:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             mean = x.mean(dim=(0, 2, 3))
             var = x.var(dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+            self._move_running_stats(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+    @torch.no_grad()
+    def _move_running_stats(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        sums = distributed.all_reduce_sum(torch.cat(
+            [x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() // c)]))
+        count = sums[c]
+        centred = x - (sums[:c] / count)[None, :, None, None]
+        var = distributed.all_reduce_sum(
+            centred.square().sum(dim=(0, 2, 3))) / count
+        self._move_running_stats(sums[:c].detach() / count, var.detach())
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (centred * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 class BasicBlock(nn.Module):

@@ -9,7 +9,8 @@ update count, the count of dropped non-finite updates, the step count and
 the four architecture names. `is_best` copies it to `<save_dir>/best.pt`,
 as cc_tpu promotes `<dir>/checkpoint` to `<dir>/best`. The optimizer
 state's structure is the same in every --fix-* phase, so a checkpoint of
-one phase resumes in another.
+one phase resumes in another. In a multi-process launch the primary saves
+and every process loads (cc_tpu/train/checkpoint.py:22-50).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import shutil
 import torch
 from torch import nn
 
+from cc_tpu_torch.parallel import distributed
 from cc_tpu_torch.train.state import NETS, AdamState
 
 CHECKPOINT = "checkpoint.pt"
@@ -48,9 +50,13 @@ def _replace_atomically(path: str, write) -> None:
 def save_checkpoint(save_dir: str, nets: nn.ModuleDict, opt_state: AdamState,
                     is_best: bool = False) -> str:
     """Write <save_dir>/checkpoint.pt (and copy it to best.pt when
-    is_best); returns its path."""
-    os.makedirs(save_dir, exist_ok=True)
+    is_best); returns its path. In a multi-process launch only the primary
+    writes, since every process holds the same state; the others return
+    the path at once."""
     path = os.path.join(save_dir, CHECKPOINT)
+    if not distributed.is_primary():
+        return path
+    os.makedirs(save_dir, exist_ok=True)
     moments = lambda m: {n: dict(zip(_param_keys(nets[n]), m[n]))
                          for n in NETS}
     state = {"archs": architectures(nets),
@@ -70,9 +76,17 @@ def load_checkpoint(path: str, nets: nn.ModuleDict,
     """Load a checkpoint (its file, or the directory that holds
     checkpoint.pt) into `nets` and `opt_state` in place, on whatever device
     they are. Every key must match (strict); raises ValueError when the
-    checkpoint's architectures are not the nets'."""
+    checkpoint's architectures are not the nets'. In a multi-process launch
+    every process loads the file, which raises FileNotFoundError on a
+    process that cannot see it (cc_tpu/cli/train.py:386-398), rather than
+    let it train from other weights than the primary's."""
     if os.path.isdir(path):
         path = os.path.join(path, CHECKPOINT)
+    if distributed.process_count() > 1 and not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{path} is not visible to process {distributed.process_index()}"
+            ": in a multi-process launch the checkpoint directory must be on "
+            "a filesystem that every process sees")
     state = torch.load(path, map_location="cpu", weights_only=True)
     if state["archs"] != architectures(nets):
         raise ValueError(f"{path} holds {state['archs']}, the nets are "

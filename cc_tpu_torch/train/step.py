@@ -31,8 +31,9 @@ from cc_tpu_torch.losses.photometric import (
 from cc_tpu_torch.losses.smoothness import (
     edge_aware_smoothness_loss, smooth_loss,
 )
+from cc_tpu_torch.parallel import distributed
 from cc_tpu_torch.train.config import TrainConfig
-from cc_tpu_torch.train.state import AdamState, make_optimizer
+from cc_tpu_torch.train.state import NETS, AdamState, make_optimizer
 
 FLOWNETS = ("Back2Future", "FlowNetC6")
 METRICS = ("loss", "photo_cam_loss", "explainability_loss", "smooth_loss",
@@ -222,6 +223,19 @@ def compute_losses(cfg: TrainConfig, outputs: dict, batch: dict):
     return total, metrics
 
 
+def _average_gradients(nets: nn.ModuleDict, live) -> None:
+    """The gradients of the nets that train, replaced by their mean over the
+    processes of a launch; a parameter without a gradient takes part as
+    zeros, which is how Adam reads it."""
+    grads = []
+    for name in live:
+        for p in nets[name].parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    distributed.all_reduce_mean_(grads)
+
+
 def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
                      opt_state: AdamState) -> Callable[[dict], dict]:
     """The joint CC train step, the counterpart of cc_tpu's build_train_step
@@ -234,9 +248,21 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
 
     The state carries across phases: build one step per --fix-* config,
     all on the same nets and opt_state.
+
+    In a multi-process launch (parallel/distributed.py, initialized before
+    the step is built) `batch` holds this process's rows of the global
+    batch, and the step is cc_tpu's on the global batch, with the batch
+    sharded over the mesh: BatchNorm and the out-of-bounds barrier read
+    global statistics, the gradients of the nets that train are averaged
+    over the processes before Adam reads them (so its clip, its
+    non-finite guard and its moments see the global gradient, and every
+    replica takes the same update), and the metrics returned are the
+    averages over the processes, still on the device.
     """
     check_ported(cfg)
     optimizer = make_optimizer(cfg)
+    live = [n for n in NETS if not optimizer.frozen[n]]
+    replicas = distributed.process_count()
 
     def step(batch: dict) -> dict:
         for p in nets.parameters():
@@ -244,8 +270,14 @@ def build_train_step(cfg: TrainConfig, nets: nn.ModuleDict,
         outputs = forward_all(cfg, nets, batch, training=True)
         total, metrics = compute_losses(cfg, outputs, batch)
         total.backward()
+        if replicas > 1:
+            _average_gradients(nets, live)
         optimizer.update(nets, opt_state)
         opt_state.step += 1
+        if replicas > 1:
+            values = torch.stack([metrics[k].detach() for k in METRICS])
+            distributed.all_reduce_mean_([values])
+            return dict(zip(METRICS, values.unbind()))
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

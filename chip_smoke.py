@@ -17,8 +17,9 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    same bits on a second launch, the tiles and the bytes each stages from
    L2 into shared memory, counted from them.
    - K1, the correlation forward, and K1', its backward: Back2Future's five
-     pyramid shapes (P=9, d=1), FlowNetC6's shape (P=21, d=2) and a ragged
-     shape.
+     pyramid shapes (P=9, d=1), FlowNetC6's shape (P=21, d=2), a ragged
+     shape, and Back2Future's at batch 2 (a process of the ddp phase); K1
+     also at batch 1 (the validation forwards).
    - K2, the row gather, at experiment E5's [256,832].
 4. gather: E5's path on the port, the row gather of E5's inputs.
 5. slice: forward_eval of the four paper-default nets at 832x256, batch 4,
@@ -70,7 +71,19 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    --fix-flownet run and every net moved in the last; seconds per epoch,
    the im/s the CLI printed beside the train phase's resident step,
    validation ms per item, checkpoint seconds and bytes.
-14. eval_cli: every eval and inference CLI of the port (test_disp with
+14. ddp: data parallel training under torchrun, two processes sharing
+   the card through gloo (not a scaling measurement): the Back2Future step
+   at bench.py's point on a global batch of 4 whose rows differ, 2 rows a
+   process, against one process on the card from the same weights and
+   batch: a step (compare_train_states), then two steps and a fix_flownet
+   step (their metrics; the state after them reported); the two
+   processes bit-equal, 10 K1 and 10 K1' a step on each (0 K1' with F
+   frozen), ms a step and gradient bytes all-reduced a step. Then the
+   train CLI under a two-process launch against one process, an epoch of
+   3 steps with flow validation (train loss within rtol 2e-3, one recorder
+   line, the same files), and --resume --fix-flownet on two processes (F
+   bit-equal across it).
+15. eval_cli: every eval and inference CLI of the port (test_disp with
    a pose net, test_make3d, run_inference, test_pose, test_sintel_pose,
    test_back2future with Back2Future and with FlowNetC6, test_flow,
    test_mask, submit_flow, evaluate_flow) in-process on the card at its
@@ -83,7 +96,7 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    seconds per item and the host's share of them (a profiler of the
    card's kernels); test_disp and test_flow on the card against the same
    CLIs on the CPU.
-15. etl: raw KITTI through the ETL into the train CLI, then D exported:
+16. etl: raw KITTI through the ETL into the train CLI, then D exported:
    a KITTI raw tree at KITTI's frame size (2 drives x 2 cameras x 10
    1242x375 PNGs, oxts at 5 m/s, velodyne scans of 100,000 points,
    KITTI's calibration files) through cc_tpu_torch.cli.prepare_train_data
@@ -95,14 +108,14 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    its checkpoint through weights.save_torch_checkpoint, loaded back
    strictly by the eval CLIs' load_net_params, its output bit-equal to the
    checkpoint's net's.
-16. mnist: the MNIST CC demo on MNIST IDX files at MNIST's sizes and SVHN
+17. mnist: the MNIST CC demo on MNIST IDX files at MNIST's sizes and SVHN
    .mat files cut to 10,000/2,000: cli.mnist for an epoch of 200 steps
    compete and one collaborate (batch 64), steps/s per epoch; a profiler
    window of each step on a resident batch (the card's idle share); then
    cli.mnist_eval of mnist_best.pt on the card and on the CPU: logits
    within 1e-4 over the test sets, error rates equal but for samples
    within 1e-4 of a tie (counted).
-17. kernels: one entry per kernel; its launches, times and bound per run
+18. kernels: one entry per kernel; its launches, times and bound per run
    of each path that runs it (`paths`), the first path's at the top level.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -110,6 +123,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import os
@@ -135,6 +149,7 @@ from cc_tpu_torch.train import (
     load_checkpoint, make_models, make_optimizer, save_checkpoint,
 )
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-5          # correlation kernels vs plain, fp32 sums in another order
 SLICE_RTOL = 1e-3    # GPU vs CPU forward, relative to each output's max
 B = 4
@@ -148,6 +163,8 @@ RAGGED_CASES = [((2, 5, 7, 3), 9, 1)]
 # the train CLI's flow validation runs the forward at batch 1
 B1_CASES = {"Back2Future": [((1, *s), 9, 1) for s in MAIN_SHAPES],
             "FlowNetC6": [((1, 32, 104, 256), 21, 2)]}
+# each of the ddp phase's two processes steps on half the global batch
+B2_CASES = [((B // 2, *s), 9, 1) for s in MAIN_SHAPES]
 # per run of a path, K1 and K1' launch twice at each of its shapes:
 # Back2Future's forward and backward streams at each level, FlowNetC6's
 # two calls of F (tgt with refs[2], tgt with refs[1])
@@ -337,6 +354,7 @@ def phase_correlation(bw, flops, backward: bool):
     cases = B2F_CASES + C6_CASES + RAGGED_CASES
     if not backward:
         cases = cases + B1_CASES["Back2Future"] + B1_CASES["FlowNetC6"]
+    cases = cases + B2_CASES
     name = "correlation_backward" if backward else "correlation_forward"
     rows = []
     for shape, patch, dil in cases:
@@ -1208,6 +1226,22 @@ def _cli_run(name: str, argv: list[str], flownet: str, val_n: int,
             "checkpoint_s": per_epoch("checkpoint"), "files": files}
 
 
+def bench_cli_argv(root: str, kitti: str) -> list[str]:
+    """The train CLI's flags for bench.py's point (832x256, batch 4, its
+    loss weights) on the scene folders under `root`, with the KITTI 2015
+    tree `kitti` for flow validation."""
+    bench = lambda k: str(BENCH[k])
+    return [root, "--height", "256", "--width", "832", "-b", str(B),
+            "-pc", bench("cam_photo_loss_weight"),
+            "-m", bench("mask_loss_weight"),
+            "-s", bench("smooth_loss_weight"),
+            "-pf", bench("flow_photo_loss_weight"),
+            "-c", bench("consensus_loss_weight"),
+            "-wssim", bench("wssim"), "--lr", bench("lr"),
+            "--smoothness-type", BENCH["smoothness_type"],
+            "-j", "4", "--kitti-dir", kitti, "--seed", "0"]
+
+
 def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
     """The train CLI in-process, in a temporary working directory: three
     runs over the scene folders under `root` (832x256 JPEGs with train.txt
@@ -1219,7 +1253,6 @@ def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
     Returns {run: (K1, K1', steps, training-image forwards, validation
     items), each per epoch}."""
     has = lambda mod: importlib.util.find_spec(mod) is not None
-    bench = lambda k: str(BENCH[k])
     cwd = os.getcwd()
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1227,15 +1260,7 @@ def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
         os.makedirs(os.path.join(tmp, "run"))
         os.chdir(os.path.join(tmp, "run"))
         try:
-            base = [root, "--height", "256", "--width", "832", "-b", str(B),
-                    "-pc", bench("cam_photo_loss_weight"),
-                    "-m", bench("mask_loss_weight"),
-                    "-s", bench("smooth_loss_weight"),
-                    "-pf", bench("flow_photo_loss_weight"),
-                    "-c", bench("consensus_loss_weight"),
-                    "-wssim", bench("wssim"), "--lr", bench("lr"),
-                    "--smoothness-type", BENCH["smoothness_type"],
-                    "-j", "4", "--kitti-dir", kitti, "--seed", "0"]
+            base = bench_cli_argv(root, kitti)
             b2f = base + ["--name", "b2f", "--epoch-size", "3",
                           "--with-depth-gt", "--with-flow-gt",
                           "--val-flow-N", "4", "-f", "3", "--log-output",
@@ -1302,6 +1327,196 @@ def phase_train_cli(root: str, gpu: str, step_ms: dict) -> dict:
                          row["training_image_forwards"] // n,
                          row["flow_validation_items"] // n)
     return launches
+
+
+def _port_util():
+    """tests/torch_port_util.py, imported by its path (an installed package
+    named `tests` would hide it): the train steps of a spec, on one process
+    or as each process of a torchrun launch, and the launcher."""
+    path = os.path.join(REPO, "tests", "torch_port_util.py")
+    spec = importlib.util.spec_from_file_location("torch_port_util", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _rows_differ(batch: dict) -> dict:
+    """A copy of seeded_batch's host batch whose rows also differ in their
+    intrinsics (the images of seeded_batch already do): row i's focal
+    lengths and principal point moved by 5 % of the frame times i."""
+    out = {k: v.cpu().numpy().copy() for k, v in batch.items()}
+    for i, k in enumerate(out["intrinsics"]):
+        k[0, 0] *= 1.0 - 0.05 * i
+        k[1, 1] *= 1.0 + 0.05 * i
+        k[0, 2] += 0.05 * i * out["tgt"].shape[2]
+        k[1, 2] -= 0.05 * i * out["tgt"].shape[1]
+    out["intrinsics_inv"] = np.linalg.inv(out["intrinsics"]).astype(
+        np.float32)
+    return out
+
+
+def phase_ddp(root: str, gpu: str) -> list:
+    """Data parallel training of two processes sharing the card (torchrun,
+    gloo, which all-reduces CUDA tensors through host memory): not a
+    scaling measurement, one card cannot give one.
+    (a) The step at bench.py's point, a global batch of 4 whose rows
+    differ (images and intrinsics), 2 rows a process
+    (tests/torch_port_util.py's run_steps, the script of each process),
+    against one process on the card from the same weights and batch: a
+    step, compared by compare_train_states; then, from the same weights
+    again, two steps and a fix_flownet step, whose metrics are compared
+    step by step (the state after them is reported: Adam's later steps
+    carry the first step's sign flips of near-zero gradients on). The two
+    processes bit-equal; 10 K1 and 10 K1' a step on each, 0 K1' with F
+    frozen. Each step's ms and the gradient bytes averaged a step.
+    (b) The train CLI on the scene folders under `root`, an epoch of 3
+    steps with flow validation, under torchrun with two processes and in
+    this process: the epoch's train loss within cc_tpu's rtol 2e-3
+    (tests/test_distributed_2proc.py), one recorder line, the same files;
+    then --resume --fix-flownet on two processes for a step, F bit-equal
+    across it. Returns the launches a step of (a)'s second run, per
+    process."""
+    util = _port_util()
+    cfg = TrainConfig(height=256, width=832, batch_size=B, **BENCH)
+    nets = make_models(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(2))
+    spec = {"device": "cuda", "config": dataclasses.asdict(cfg),
+            "nets": nets.state_dict(),
+            "batch": _rows_differ(seeded_batch(cfg, "cpu", seed=2)),
+            "runs": [[{}], [{}, {}, {"fix_flownet": True}]]}
+    del nets
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(spec, os.path.join(tmp, "spec.pt"))
+        one = util.run_steps(spec, "cuda")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        util.torchrun(["tests/torch_port_util.py", "steps",
+                       os.path.join(tmp, "spec.pt"), tmp])
+        launch_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{i}.pt"))
+                 for i in range(2)]
+    failures = []
+    expected = [[(10, 10)], [(10, 10), (10, 10), (10, 0)]]
+    for name, runs in [("one process", one),
+                       *((f"process {i}", r["runs"])
+                         for i, r in enumerate(ranks))]:
+        if [run["launches"] for run in runs] != expected:
+            failures.append(f"{name}: launches "
+                            f"{[run['launches'] for run in runs]}, expected "
+                            f"{expected}")
+    a, b = (r["runs"][1]["state"] for r in ranks)
+    equal = all(torch.equal(v, b["nets"][k]) for k, v in a["nets"].items())
+    if not equal or a["counts"] != b["counts"]:
+        failures.append(f"the two processes differ: nets bit-equal {equal},"
+                        f" counts {a['counts']} and {b['counts']}")
+    first, more = compare_train_states(
+        one[0]["metrics"], ranks[0]["runs"][0]["metrics"], one[0]["state"],
+        ranks[0]["runs"][0]["state"])
+    failures += more
+    three, more = compare_train_states(
+        one[1]["metrics"], ranks[0]["runs"][1]["metrics"], one[1]["state"],
+        a)
+    failures += [f for f in more if f.startswith("metrics ")]
+    emit({"phase": "ddp", "part": "step", "gpu": gpu,
+          "what": "2 processes sharing one card through gloo (host-memory "
+                  "all-reduce): not a scaling number",
+          "hw": [cfg.height, cfg.width], "global_batch": cfg.batch_size,
+          "rows_a_process": cfg.batch_size // 2,
+          "backend": ranks[0]["backend"],
+          "devices": [r["device"] for r in ranks],
+          "runs": [["step"], ["step", "step", "fix_flownet step"]],
+          "launches_one_process": [run["launches"] for run in one],
+          "launches_a_process": [[run["launches"] for run in r["runs"]]
+                                 for r in ranks],
+          "ms_a_step_two_processes": [[run["ms"] for run in r["runs"]]
+                                      for r in ranks],
+          "ms_a_step_one_process": [run["ms"] for run in one],
+          "grad_bytes_all_reduced_a_step":
+              ranks[0]["runs"][1]["grad_bytes"],
+          "launch_s": launch_s, "nets_bit_equal_across_processes": equal,
+          "metrics_one_process": [run["metrics"] for run in one],
+          "metrics_two_processes": [run["metrics"]
+                                    for run in ranks[0]["runs"]],
+          "after_one_step": first,
+          "after_three_steps": {**three, "state_checks_failed": [
+              f for f in more if not f.startswith("metrics ")]}})
+    if failures:
+        raise AssertionError("ddp step: " + "; ".join(failures))
+    cli_row = _ddp_cli(root, util)
+    emit({"phase": "ddp", "part": "cli", "gpu": gpu, **cli_row})
+    return [r["runs"][1]["launches"][0] for r in ranks]
+
+
+def _ddp_cli(root: str, util) -> dict:
+    """Part (b) of phase_ddp."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = synthetic_kitti2015(os.path.join(tmp, "kitti2015"), 2)
+        argv = bench_cli_argv(root, kitti) + [
+            "--name", "ddp", "--epochs", "1", "--epoch-size", "3",
+            "--with-flow-gt", "--val-flow-N", "2", "--print-freq", "1"]
+        runs = {n: os.path.join(tmp, n) for n in ("one", "two")}
+        for d in runs.values():
+            os.makedirs(d)
+        os.chdir(runs["one"])
+        try:
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            one_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log = util.torchrun(["-m", "cc_tpu_torch.cli.train", *argv],
+                            cwd=runs["two"])
+        two_s = time.perf_counter() - t0
+        save = {n: os.path.join(d, "checkpoints", "ddp")
+                for n, d in runs.items()}
+        loss = {}
+        for n in runs:
+            with open(os.path.join(save[n], "progress_log_summary.csv")) as f:
+                loss[n] = float(f.read().splitlines()[1].split("\t")[0])
+        # a tensorboardX event file's name holds its time of creation
+        files = {n: sorted("events" if f.startswith("events.out.tfevents")
+                           else f for f in os.listdir(save[n]))
+                 for n in runs}
+        with open(os.path.join(runs["two"], "experiment_recorder.md")) as f:
+            recorder_lines = f.read().count("python3 ")
+        first = torch.load(os.path.join(save["two"], "checkpoint.pt"),
+                           map_location="cpu", weights_only=True)
+        resume = argv + ["--resume", "--fix-flownet"]
+        resume[resume.index("--epoch-size") + 1] = "1"
+        t0 = time.perf_counter()
+        util.torchrun(["-m", "cc_tpu_torch.cli.train", *resume],
+                      cwd=runs["two"])
+        resume_s = time.perf_counter() - t0
+        second = torch.load(os.path.join(save["two"], "checkpoint.pt"),
+                            map_location="cpu", weights_only=True)
+    flow_equal = all(torch.equal(first[g]["flow"][k], second[g]["flow"][k])
+                     for g in ("nets", "mu", "nu") for k in first[g]["flow"])
+    rel = abs(loss["two"] - loss["one"]) / abs(loss["one"])
+    row = {"argv": " ".join(argv), "train_loss": loss,
+           "train_loss_rel_diff": rel, "rtol": 2e-3,
+           "printed": [l for l in log.splitlines() if l.startswith("=> ")
+                       and ("process" in l)],
+           "files": files, "recorder_lines": recorder_lines,
+           "seconds_one_process": one_s, "seconds_two_processes": two_s,
+           "resume_fix_flownet_s": resume_s,
+           "steps_before_after_resume": [first["step"], second["step"]],
+           "flow_bit_equal_across_resume": flow_equal}
+    failures = []
+    if not (np.isfinite(list(loss.values())).all() and rel <= 2e-3):
+        failures.append(f"train loss {loss}")
+    if files["one"] != files["two"] or recorder_lines != 1:
+        failures.append(f"files {files}, {recorder_lines} recorder lines")
+    if "=> 2 process(es) on gloo" not in log:
+        failures.append("no '=> 2 process(es) on gloo' printed")
+    if not flow_equal or second["step"] != first["step"] + 1:
+        failures.append(f"--resume --fix-flownet: F bit-equal {flow_equal},"
+                        f" step {first['step']} -> {second['step']}")
+    if failures:
+        raise AssertionError("ddp CLI: " + "; ".join(failures))
+    return row
 
 
 def _png(path: str, img: np.ndarray) -> None:
@@ -2132,6 +2347,7 @@ def main() -> int:
         phase_resume(roots[128, 128], gpu)
         add_depth_val_scene(roots[256, 832], 256, 832, frames=8)
         cli = phase_train_cli(roots[256, 832], gpu, step_ms)
+        ddp_launches = phase_ddp(roots[256, 832], gpu)
     eval_k1 = phase_eval_cli(gpu)
     cli["Back2Future ETL dump"] = phase_etl(gpu, step_ms["Back2Future"])
     phase_mnist(gpu)
@@ -2140,7 +2356,7 @@ def main() -> int:
     corr_rows = {"fwd": fwd_rows, "bwd": bwd_rows}
     start = n_b2f + n_c6 + len(RAGGED_CASES)
     b1 = {"Back2Future": fwd_rows[start:start + n_b2f],
-          "FlowNetC6": fwd_rows[start + n_b2f:]}
+          "FlowNetC6": fwd_rows[start + n_b2f:start + n_b2f + 1]}
     corr_paths = {}
     for kind, k in (("fwd", 0), ("bwd", 1)):
         b2f, c6 = corr_rows[kind][:n_b2f], corr_rows[kind][n_b2f:n_b2f + n_c6]
@@ -2173,7 +2389,11 @@ def main() -> int:
             cli_entry("FlowNetC6 train CLI epoch", "FlowNetC6",
                       "FlowNetC6"),
             cli_entry("Back2Future train CLI epoch on an ETL dump",
-                      "Back2Future ETL dump", "Back2Future")]
+                      "Back2Future ETL dump", "Back2Future"),
+            path_entry("Back2Future train step on each of 2 processes "
+                       "sharing the card, 2 rows each",
+                       corr_rows[kind][-len(B2_CASES):],
+                       ddp_launches[0][k])]
         if kind == "fwd":
             corr_paths[kind] += [
                 path_entry("Back2Future eval forward", b2f,

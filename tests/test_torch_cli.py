@@ -337,7 +337,8 @@ def test_cli_runs_validates_and_resumes(scenes, kitti, tmp_path,
     (["--compute-dtype", "bfloat16"], {}, NotImplementedError),
     (["--loss-dtype", "bfloat16"], {}, NotImplementedError),
     (["--posenet", "PoseExpNet"], {}, NotImplementedError),
-    ([], {"WORLD_SIZE": "2"}, NotImplementedError),
+    # a launch without torchrun's RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT
+    ([], {"WORLD_SIZE": "2"}, ValueError),
 ])
 def test_flag_errors_before_any_file(scenes, kitti, tmp_path, monkeypatch,
                                      extra, env, error):

@@ -594,6 +594,92 @@ def test_mnist_steps_on_the_card_match_the_cpu(cuda):
                              b.nets[n].state_dict().values()):
             assert_close(x, y, 2 * MNIST_LR * 4 + 1e-6, f"{n}.{k}")
 
+
+# Two processes on the card against one, both on the card: the metrics
+# relative to each; Adam's moments relative to each net's largest entry
+# (a moment near zero may take the other sign); BatchNorm stats relative
+# to their magnitude; parameters within 2*lr after a step, and at most
+# DDP_MOVED_SHARE of their entries more than 1e-6 apart (chip_smoke.py's
+# compare_train_states holds the bench-size run to the same)
+DDP_METRIC_RTOL = 1e-3
+# bench.py:80-112's loss weights (chip_smoke.py's BENCH). At 128x128 the
+# nets' gradients are ill-conditioned (ReLU pre-activations within
+# rounding of zero in maps of 1x1 to 8x8): with the default weights one
+# process on the card against the CPU is 8.9x this test's moment bound
+# for F, and with these two processes against one 1.15x for D
+BENCH = dict(wssim=0.997, smoothness_type="edgeaware",
+             cam_photo_loss_weight=1.0, mask_loss_weight=0.1,
+             smooth_loss_weight=0.1, flow_photo_loss_weight=0.5,
+             consensus_loss_weight=0.3, lr=1e-4)
+DDP_MOMENT_RTOL = 2e-3
+DDP_STATS_RTOL = 1e-4
+DDP_MOVED_SHARE = 0.01
+
+
+def test_two_processes_on_one_card_match_one_process(cuda, tmp_path):
+    """Two processes under torchrun sharing the card through gloo, 2 rows
+    each of a global batch of 4 whose rows differ
+    (torch_port_util.rows_differ_batch) at bench.py's point (832x256, its
+    loss weights), against one process with all 4 rows, from the same
+    weights: after a step, the metrics, moments,
+    parameters and BatchNorm stats; then, from the same weights again, a
+    step and a fix_flownet step: their metrics, 10 K1 and 10 K1' launches
+    on each process in the step and 10 and 0 in the fix_flownet step, as
+    one process makes, and the two processes bit-equal. (Adam's second
+    step carries the first one's sign flips of near-zero gradients on, so
+    the state after it is not held to the one process's.)"""
+    from torch_port_util import rows_differ_batch, run_steps, torchrun
+    cfg = TrainConfig(height=256, width=832, batch_size=4, **BENCH)
+    nets = make_models(cfg, device="cpu")
+    spec = {"device": "cuda", "config": {k: getattr(cfg, k) for k in
+                                         cfg.__dataclass_fields__},
+            "nets": nets.state_dict(),
+            "batch": rows_differ_batch(256, 832, b=4),
+            "runs": [[{}], [{}, {"fix_flownet": True}]]}
+    one = run_steps(spec, cuda)
+    files = [tmp_path / n for n in ("spec.pt", "rank0.pt", "rank1.pt")]
+    try:
+        torch.save(spec, files[0])
+        out = torchrun(["tests/torch_port_util.py", "steps", str(files[0]),
+                        str(tmp_path)])
+        ranks = [torch.load(f) for f in files[1:]]
+    finally:  # about 2.7 GB of weights and moments
+        for f in files:
+            f.unlink(missing_ok=True)
+    launches = [run["launches"] for run in one]
+    assert launches == [[(10, 10)], [(10, 10), (10, 0)]]
+    for r in ranks:
+        assert (r["world"], r["backend"], r["device"]) == (2, "gloo",
+                                                           "cuda:0"), out
+        assert [run["launches"] for run in r["runs"]] == launches
+        for m0, m1 in zip(one[0]["metrics"] + one[1]["metrics"],
+                          r["runs"][0]["metrics"] + r["runs"][1]["metrics"]):
+            for k, e in m0.items():
+                assert abs(m1[k] - e) <= DDP_METRIC_RTOL * abs(e), (k, m1, e)
+    a, b = (r["runs"][1]["state"] for r in ranks)
+    assert a["counts"] == b["counts"] == (2, 0, 2)
+    assert all(torch.equal(v, b["nets"][k]) for k, v in a["nets"].items())
+
+    ref, mine = one[0]["state"], ranks[0]["runs"][0]["state"]
+    for group in ("mu", "nu"):
+        for n in NETS:
+            scale = max(float(t.abs().max()) for t in ref[group][n])
+            for i, (x, e) in enumerate(zip(mine[group][n], ref[group][n])):
+                assert_close(x, e, DDP_MOMENT_RTOL * scale, f"{group} {n}.{i}")
+    moved = total = 0
+    for k, e in ref["nets"].items():
+        if not e.is_floating_point():
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            assert_close(mine["nets"][k], e,
+                         DDP_STATS_RTOL * max(1.0, float(e.abs().max())), k)
+        else:
+            assert_close(mine["nets"][k], e, 2 * cfg.lr + 1e-6, k)
+            moved += int(((mine["nets"][k] - e).abs() > 1e-6).sum())
+            total += e.numel()
+    assert moved <= DDP_MOVED_SHARE * total, (moved, total)
+
+
 if __name__ == "__main__":
     # FlowNetC6's gradients on the card against the CPU's, for the nets of
     # torch seeds 0..n-1: each error over its tolerance (NET_RTOL of the

@@ -18,6 +18,8 @@ persistent compile cache can serve both files. The variables' structure
 comes from jax.eval_shape of init_state and their values are drawn with
 numpy: init_state itself is not run.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -35,12 +37,15 @@ from cc_tpu_torch.train import (
     METRICS, NETS, TrainConfig, build_train_step, forward_eval, make_models,
     make_optimizer,
 )
-from cc_tpu_torch.train.step import forward_all
+from cc_tpu_torch.train.step import compute_losses, forward_all
 from cc_tpu_torch.weights import (
     load_cc_tpu_state, load_flax_weights, state_dict_from_flax,
 )
+from cc_tpu_torch.losses import photometric
 from tests.test_train_step import synth_batch, tiny_config
-from tests.torch_port_util import assert_close, draw_flax_variables
+from tests.torch_port_util import (
+    assert_close, draw_flax_variables, rows_differ_batch, torchrun,
+)
 
 torch.set_num_threads(2)
 
@@ -81,8 +86,10 @@ def _adam_state(opt_state):
 
 
 @pytest.fixture(scope="module")
-def jax_step():
-    """One cc_tpu train step on test_train_step's config and batch."""
+def jax_train():
+    """cc_tpu's jitted train step on test_train_step's config, and a state of
+    drawn variables with zero moments: the module's one compile, which
+    every batch of that config's shapes reuses."""
     cfg = tiny_config()
     shapes = jax.eval_shape(lambda k: init_state(cfg, k),
                             jax.random.PRNGKey(0))
@@ -95,10 +102,17 @@ def jax_step():
         jax.eval_shape(jax_make_optimizer(cfg).init, params))
     state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                        step=np.zeros((), np.int32))
-    batch = {k: np.array(v) for k, v in synth_batch(cfg).items()}
     step = jax_build_train_step(cfg, jax_make_models(cfg), donate=False)
+    return cfg, state, step
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_train):
+    """One cc_tpu train step on test_train_step's config and batch."""
+    cfg, state, step = jax_train
+    batch = {k: np.array(v) for k, v in synth_batch(cfg).items()}
     new_state, metrics = jax.device_get(step(state, batch))
-    return cfg, params, stats, batch, new_state, metrics
+    return cfg, state.params, state.batch_stats, batch, new_state, metrics
 
 
 def _port(jcfg, params, stats, **changes):
@@ -124,9 +138,8 @@ def port_step(jax_step):
     return cfg, nets, opt_state, metrics
 
 
-def test_metrics_match(jax_step, port_step):
-    ref = jax_step[5]
-    out = port_step[3]
+def check_metrics(ref: dict, out: dict) -> None:
+    """A step's six metrics against cc_tpu's, within METRIC_RTOL."""
     assert set(out) == set(ref) == set(METRICS)
     for k in METRICS:
         e = float(ref[k])
@@ -134,14 +147,14 @@ def test_metrics_match(jax_step, port_step):
         assert_close(out[k], np.float32(e), METRIC_RTOL * abs(e), k)
 
 
-def test_first_moments_match_gradients(jax_step, port_step):
-    jcfg, _, _, _, new_state, _ = jax_step
-    _, nets, opt_state, _ = port_step
-    assert opt_state.count == int(_adam_state(new_state.opt_state).count) == 1
-    mu = _adam_state(new_state.opt_state).mu
+def check_first_moments(jcfg, new_state, nets, mu: dict) -> None:
+    """Adam's first moments after one step from zero, (1-b1)*grad, per net
+    (lists in nets[name].parameters() order) against cc_tpu's."""
+    ref_mu = _adam_state(new_state.opt_state).mu
     for name, arch in _archs(jcfg).items():
-        ref = state_dict_from_flax(arch, mu[name], new_state.batch_stats[name])
-        mine = _by_name(nets[name], opt_state.mu[name])
+        ref = state_dict_from_flax(arch, ref_mu[name],
+                                   new_state.batch_stats[name])
+        mine = _by_name(nets[name], mu[name])
         assert set(mine) <= set(ref)
         net_max = max(float(np.max(np.abs(ref[k]))) for k in mine)
         for k, t in mine.items():
@@ -150,9 +163,9 @@ def test_first_moments_match_gradients(jax_step, port_step):
             assert_close(t, ref[k], tol, f"{name}.{k}")
 
 
-def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
-    jcfg, _, _, _, new_state, _ = jax_step
-    _, nets, _, _ = port_step
+def check_params_and_stats(jcfg, new_state, state_dict: dict) -> None:
+    """The four nets' parameters and BatchNorm running stats after one step
+    (a state dict of the ModuleDict of nets) against cc_tpu's."""
     # Adam's first step moves each parameter by about lr*sign(grad): where
     # a near-zero gradient takes the other sign, the two differ by up to
     # 2*lr
@@ -161,7 +174,8 @@ def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
     for name, arch in _archs(jcfg).items():
         ref = state_dict_from_flax(arch, new_state.params[name],
                                    new_state.batch_stats[name])
-        mine = nets[name].state_dict()
+        mine = {k[len(name) + 1:]: v for k, v in state_dict.items()
+                if k.startswith(name + ".")}
         assert set(mine) == set(ref)
         for k, t in mine.items():
             if k.endswith("num_batches_tracked"):
@@ -175,6 +189,23 @@ def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
                 n_far += int((np.abs(t.numpy() - e) > 1e-6).sum())
                 n_all += e.size
     assert n_far <= PARAM_MOVED_SHARE * n_all, (n_far, n_all)
+
+
+def test_metrics_match(jax_step, port_step):
+    check_metrics(jax_step[5], port_step[3])
+
+
+def test_first_moments_match_gradients(jax_step, port_step):
+    jcfg, _, _, _, new_state, _ = jax_step
+    _, nets, opt_state, _ = port_step
+    assert opt_state.count == int(_adam_state(new_state.opt_state).count) == 1
+    check_first_moments(jcfg, new_state, nets, opt_state.mu)
+
+
+def test_updated_params_and_batchnorm_stats_match(jax_step, port_step):
+    jcfg, _, _, _, new_state, _ = jax_step
+    _, nets, _, _ = port_step
+    check_params_and_stats(jcfg, new_state, nets.state_dict())
 
 
 def test_cc_tpu_state_carries_into_the_port(jax_step):
@@ -234,6 +265,79 @@ def test_frozen_phase_step(jax_step):
                   and k.endswith(("running_mean", "running_var"))]
     assert stats_keys
     assert all(not torch.equal(after[k], before[k]) for k in stats_keys)
+
+
+def _row_statistics(cfg, nets, batch) -> tuple[list, torch.Tensor]:
+    """Each row's statistics that a step over the batch shares across rows:
+    the valid pixels' sum of every out-of-bounds barrier of the losses,
+    and the channel means at DispResNet6's first BatchNorm."""
+    sums, means = [], []
+    oob_norm = photometric._oob_norm
+
+    def record(valid):
+        sums.append(valid.sum(dim=(1, 2, 3)))
+        return oob_norm(valid)
+
+    first_bn = next(m for m in nets["disp"].modules()
+                    if isinstance(m, BatchNorm2d))
+    hook = first_bn.register_forward_hook(
+        lambda m, args, out: means.append(args[0].mean(dim=(2, 3))))
+    photometric._oob_norm = record
+    try:
+        with torch.no_grad():
+            compute_losses(cfg, forward_all(cfg, nets, batch, training=True),
+                           batch)
+    finally:
+        photometric._oob_norm = oob_norm
+        hook.remove()
+    return sums, means[0]
+
+
+def test_two_processes_take_cc_tpus_global_batch_step(jax_train, tmp_path):
+    """The port's step on two processes under torchrun (gloo, the CPU), a
+    row each, against cc_tpu's step on the two rows, on a batch whose rows
+    differ: metrics, parameters and BatchNorm stats at the module's
+    tolerances, and the two processes' parameters and buffers equal bit
+    for bit. The batch can tell a step over each process's rows from the
+    global one: its rows' out-of-bounds sums and first BatchNorm means
+    differ by more than ten times the tolerances.
+
+    The first moments are not held to cc_tpu's at MU_RTOL here: on this
+    batch the one-process step misses that too, by 19x in DispResNet6,
+    whose ReLU pre-activations lie within fp32 rounding of zero (ROADMAP,
+    Queue C). The parameters' 2*lr bound holds through such a flip."""
+    jcfg, state, jstep = jax_train
+    batch = rows_differ_batch(jcfg.height, jcfg.width, jcfg.batch_size)
+    new_state, ref_metrics = jax.device_get(jstep(state, batch))
+    cfg, nets = _port(jcfg, state.params, state.batch_stats)
+
+    sums, means = _row_statistics(cfg, _port(jcfg, state.params,
+                                             state.batch_stats)[1], batch)
+    oob_gap = max(float((s[0] - s[1]).abs() / s.max()) for s in sums)
+    assert oob_gap > 10 * METRIC_RTOL, oob_gap
+    bn_gap = float((means[0] - means[1]).abs().max())
+    assert bn_gap > 10 * STATS_RTOL * max(1.0, float(means.abs().max())), \
+        bn_gap
+
+    spec = {"device": "cpu", "config": dataclasses.asdict(cfg),
+            "nets": nets.state_dict(), "batch": batch, "runs": [[{}]]}
+    files = [tmp_path / n for n in ("spec.pt", "rank0.pt", "rank1.pt")]
+    try:
+        torch.save(spec, files[0])
+        torchrun(["tests/torch_port_util.py", "steps", str(files[0]),
+                  str(tmp_path)])
+        ranks = [torch.load(f) for f in files[1:]]
+    finally:  # about 1.5 GB of weights and moments
+        for f in files:
+            f.unlink(missing_ok=True)
+    for r in ranks:
+        assert (r["world"], r["backend"]) == (2, "gloo")
+        assert r["runs"][0]["state"]["counts"] == (1, 0, 1)
+        check_metrics(ref_metrics, r["runs"][0]["metrics"][0])
+    mine = ranks[0]["runs"][0]["state"]
+    check_params_and_stats(jcfg, new_state, mine["nets"])
+    other = ranks[1]["runs"][0]["state"]["nets"]
+    assert all(torch.equal(v, other[k]) for k, v in mine["nets"].items())
 
 
 def test_batchnorm_running_stats_follow_flax():
