@@ -92,12 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="drop optimizer updates with non-finite gradients")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default="float32", dest="compute_dtype",
-                   help="net forward/backward dtype; bfloat16 is not "
-                        "ported yet and raises")
+                   help="net forward/backward dtype; bfloat16 runs the 4 "
+                        "nets in bf16 on float32 master weights (use with "
+                        "--clip-grad-norm 5 --skip-nonfinite-updates)")
     p.add_argument("--loss-dtype", choices=["float32", "bfloat16"],
                    default="float32", dest="loss_dtype",
-                   help="loss-stack dtype; bfloat16 is not ported yet and "
-                        "raises")
+                   help="loss-stack dtype; bfloat16 casts the images and "
+                        "masks to bf16 at the loss boundary (geometry and "
+                        "every reduction stay float32)")
     p.add_argument("--matmul-precision",
                    choices=["default", "high", "highest"],
                    default="default", dest="matmul_precision",
@@ -328,7 +330,7 @@ def _check_flags(args, cfg) -> slice | None:
     if args.h2d == "uint8" and args.data_normalization == "local":
         raise ValueError("--h2d uint8 requires --data-normalization global "
                          "(local stats are a host-side joint reduction)")
-    check_ported(cfg)  # bf16, PoseExpNet as C
+    check_ported(cfg)  # PoseExpNet as C
     resolve_device(args.device)
     return mesh.batch_slice(args.batch_size)
 
@@ -355,7 +357,8 @@ def main(argv=None) -> list[dict]:
     # the reference trains in full fp32: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"=> {device}: fp32 with TF32 off for matmuls and convolutions "
+    print(f"=> {device}: nets in {cfg.compute_dtype}, losses in "
+          f"{cfg.loss_dtype}, TF32 off for matmuls and convolutions "
           f"(--matmul-precision {args.matmul_precision} changes nothing)")
 
     save_path = os.path.join("checkpoints", args.name)

@@ -52,18 +52,31 @@ class BatchNorm2d(nn.BatchNorm2d):
     step does with its batch sharded over the mesh: the per-channel sums
     and counts, then the sums of squared deviations from the global mean,
     are summed over the processes, with autograd through the sums, and
-    every process moves its running stats by the same global values."""
+    every process moves its running stats by the same global values.
+
+    A bfloat16 input (compute_dtype bfloat16, with bf16 copies of weight
+    and bias) is normalized as flax's BatchNorm normalizes it: statistics
+    and normalization in float32, the running stats float32, the output
+    rounded once to bfloat16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._forward(x.float(), self.weight.float(),
+                                 self.bias.float()).to(x.dtype)
+        return self._forward(x, self.weight, self.bias)
+
+    def _forward(self, x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                weight, bias, False, 0.0, self.eps)
         if distributed.process_count() > 1:
-            return self._global_batch_forward(x)
+            return self._global_batch_forward(x, weight, bias)
         with torch.no_grad():
             mean = x.mean(dim=(0, 2, 3))
             var = x.var(dim=(0, 2, 3), unbiased=False)
             self._move_running_stats(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias,
+        return F.batch_norm(x, None, None, weight, bias,
                             training=True, eps=self.eps)
 
     @torch.no_grad()
@@ -73,7 +86,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         self.num_batches_tracked.add_(1)
 
-    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _global_batch_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         sums = distributed.all_reduce_sum(torch.cat(
             [x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() // c)]))
@@ -82,9 +96,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = distributed.all_reduce_sum(
             centred.square().sum(dim=(0, 2, 3))) / count
         self._move_running_stats(sums[:c].detach() / count, var.detach())
-        scale = self.weight * torch.rsqrt(var + self.eps)
+        scale = weight * torch.rsqrt(var + self.eps)
         return (centred * scale[None, :, None, None]
-                + self.bias[None, :, None, None])
+                + bias[None, :, None, None])
 
 
 class BasicBlock(nn.Module):

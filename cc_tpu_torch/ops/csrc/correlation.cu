@@ -1,5 +1,5 @@
-// Local correlation cost volume, forward and backward, fp32, for Hopper
-// (sm_90a).
+// Local correlation cost volume, forward and backward, fp32 and bf16, for
+// Hopper (sm_90a).
 //
 // FORWARD. Replaces the TPU kernel cc_tpu/ops/correlation_pallas.py::_forward
 // (body _corr_kernel). For f1, f2 of shape [B,H,W,C] (NHWC, C innermost):
@@ -109,7 +109,20 @@
 // The values are still staged once per displacement row (the one-row
 // structure): at FlowNetC6's shape that is about 0.6 GB from L2 into shared
 // memory per launch, against 78 MB read and written once in device memory.
+//
+// BF16. Both kernels are templates on the element type T of f1, f2, g and
+// the outputs: float, or __nv_bfloat16 (under cc_tpu's compute_dtype
+// bfloat16 the correlation runs on bf16 features, correlation_pallas.py:
+// 102-103). The float instantiations are the code above. A bf16 launch
+// stages bf16 (16-byte copies of 8 channels, so a forward chunk holds 8*KG
+// channels where a float one holds 4*KG, in the same bytes), widens to
+// float where it reads shared memory, sums in float in the same fixed order
+// and rounds once, at the store. Where C % 8 != 0 or an input is not
+// 16-byte aligned, it stages element by element with plain loads (cp.async
+// moves 4 bytes at least); the backward's g is widened as it is staged, so
+// its rows are floats in shared memory for either type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -124,7 +137,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -139,38 +152,77 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+using bf16 = __nv_bfloat16;
+
+// Channels in one 16-byte copy of T.
+template <typename T>
+constexpr int VEC = 16 / sizeof(T);
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (std::is_same_v<T, float>)
+    return x;
+  else
+    return __float2bfloat16_rn(x);
+}
+
+// Eight bf16 channels, one 16-byte load, widened to float.
+__device__ __forceinline__ void widen8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// Four bf16 channels, one 8-byte load, widened to float.
+__device__ __forceinline__ void widen4(const bf16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
 // The forward's tiles: NP pixels (of one residue class) a thread, KG lanes
-// a pixel group, NPG pixel groups a block (head note, points 1-4).
-template <int P, int NP, int KG, int NPG>
+// a pixel group, NPG pixel groups a block (head note, points 1-4), for
+// element type E.
+template <typename E, int P, int NP, int KG, int NPG>
 struct FwdTile {
   static constexpr int R = P / 2;
   static constexpr int TW = NPG * NP;       // pixels (of one residue) a block
   static constexpr int SPAN = TW + P - 1;   // staged f2 columns, halo included
-  static constexpr int CK = 4 * KG;         // channels a chunk
+  static constexpr int CK = VEC<E> * KG;    // channels a chunk
   static constexpr int THREADS = NPG * KG;
   static constexpr int V = NP * P;          // sums a thread
-  // one buffer: f1 [TW][CK], then f2 [SPAN][CK]
+  // one buffer: f1 [TW][CK], then f2 [SPAN][CK], elements of E
   static constexpr int BUF = (TW + SPAN) * CK;
 };
 
 // Start the copies of one chunk (channels c0 .. c0+CK-1) into one buffer:
 // f1's row at the block's TW pixels, then f2's row at its SPAN columns.
 // Zero outside the image and past C.
-template <int P, int NP, int KG, int NPG>
+template <typename E, int P, int NP, int KG, int NPG>
 __device__ __forceinline__ void fwd_stage(
-    float* buf, const float* __restrict__ row1, const float* __restrict__ row2,
-    const float* __restrict__ any, int r, int m0, int W, int C, int c0,
+    E* buf, const E* __restrict__ row1, const E* __restrict__ row2,
+    const E* __restrict__ any, int r, int m0, int W, int C, int c0,
     int dil, bool vec) {
-  using T = FwdTile<P, NP, KG, NPG>;
+  using T = FwdTile<E, P, NP, KG, NPG>;
+  constexpr int V16 = VEC<E>;
   const int t = threadIdx.x;
   if (vec) {  // 16-byte copies: KG of them a staged column
     for (int e = t; e < (T::TW + T::SPAN) * KG; e += T::THREADS) {
       const int u = e / KG, q = e % KG;
       const bool first = u < T::TW;
       const int m = first ? m0 + u : m0 - T::R + (u - T::TW);
-      const int x = r + dil * m, c = c0 + 4 * q;
+      const int x = r + dil * m, c = c0 + V16 * q;
       const bool ok = m >= 0 && x < W && c < C;
-      cp_async16(buf + 4 * e,
+      cp_async16(buf + V16 * e,
                  ok ? (first ? row1 : row2) + (long long)x * C + c : any, ok);
     }
   } else {
@@ -180,19 +232,23 @@ __device__ __forceinline__ void fwd_stage(
       const int m = first ? m0 + u : m0 - T::R + (u - T::TW);
       const int x = r + dil * m, c = c0 + k;
       const bool ok = m >= 0 && x < W && c < C;
-      cp_async4(buf + e,
-                ok ? (first ? row1 : row2) + (long long)x * C + c : any, ok);
+      if constexpr (std::is_same_v<E, float>)
+        cp_async4(buf + e,
+                  ok ? (first ? row1 : row2) + (long long)x * C + c : any, ok);
+      else
+        buf[e] = ok ? (first ? row1 : row2)[(long long)x * C + c]
+                    : __float2bfloat16_rn(0.f);
     }
   }
 }
 
 // One chunk's sums for a thread: its NP pixels (staged f1 rows a .. a+NP-1,
-// staged f2 columns a .. a+NP+P-2) at channel quad `lane` of the chunk.
-// acc[i*P + j] is pixel i at tap j.
+// staged f2 columns a .. a+NP+P-2) at channel quad `lane` of the chunk (an
+// octet in bf16). acc[i*P + j] is pixel i at tap j.
 template <int P, int NP, int KG, int NPG>
 __device__ __forceinline__ void fwd_chunk(const float* buf, int a, int lane,
                                           float (&acc)[NP * P]) {
-  using T = FwdTile<P, NP, KG, NPG>;
+  using T = FwdTile<float, P, NP, KG, NPG>;
   const float* s1 = buf + a * T::CK + 4 * lane;
   const float* s2 = buf + (T::TW + a) * T::CK + 4 * lane;
   float4 f[NP];
@@ -211,6 +267,30 @@ __device__ __forceinline__ void fwd_chunk(const float* buf, int a, int lane,
       x = fmaf(f[i].y, v.y, x);
       x = fmaf(f[i].z, v.z, x);
       x = fmaf(f[i].w, v.w, x);
+    }
+  }
+}
+
+template <int P, int NP, int KG, int NPG>
+__device__ __forceinline__ void fwd_chunk(const bf16* buf, int a, int lane,
+                                          float (&acc)[NP * P]) {
+  using T = FwdTile<bf16, P, NP, KG, NPG>;
+  const bf16* s1 = buf + a * T::CK + 8 * lane;
+  const bf16* s2 = buf + (T::TW + a) * T::CK + 8 * lane;
+  float f[NP][8];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) widen8(s1 + i * T::CK, f[i]);
+#pragma unroll
+  for (int s = 0; s < NP + P - 1; ++s) {
+    float v[8];
+    widen8(s2 + s * T::CK, v);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int j = s - i;  // the tap of pixel i that reads column s
+      if (j < 0 || j >= P) continue;
+      float& x = acc[i * P + j];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x = fmaf(f[i][k], v[k], x);
     }
   }
 }
@@ -252,14 +332,15 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[V], int lane,
 
 // Grid: x = residue r (mod dil) times column tile, y = image row h,
 // z = (batch, displacement row pi).
-template <int P, int NP, int KG, int NPG>
+template <typename E, int P, int NP, int KG, int NPG>
 __global__ void __launch_bounds__(NPG * KG)
-corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                float* __restrict__ out, int H, int W, int C, int dil,
+corr_fwd_kernel(const E* __restrict__ f1, const E* __restrict__ f2,
+                E* __restrict__ out, int H, int W, int C, int dil,
                 float inv_c, bool vec) {
-  using T = FwdTile<P, NP, KG, NPG>;
+  using T = FwdTile<E, P, NP, KG, NPG>;
   constexpr int R = T::R;
   extern __shared__ __align__(16) float fwd_smem[];
+  E* const stage = reinterpret_cast<E*>(fwd_smem);
 
   const int ntile = ((W + dil - 1) / dil + T::TW - 1) / T::TW;
   const int r = blockIdx.x / ntile;
@@ -277,24 +358,24 @@ corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   float* so = fwd_smem;         // [TW][P] after the last chunk
 
   if (live) {
-    const float* row1 = f1 + ((long long)b * H + h) * W * C;
-    const float* row2 = f2 + ((long long)b * H + y2) * W * C;
+    const E* row1 = f1 + ((long long)b * H + h) * W * C;
+    const E* row2 = f2 + ((long long)b * H + y2) * W * C;
     float acc[T::V];
 #pragma unroll
     for (int i = 0; i < T::V; ++i) acc[i] = 0.f;
     const int nchunk = (C + T::CK - 1) / T::CK;
-    fwd_stage<P, NP, KG, NPG>(fwd_smem, row1, row2, f1, r, m0, W, C, 0, dil,
-                              vec);
+    fwd_stage<E, P, NP, KG, NPG>(stage, row1, row2, f1, r, m0, W, C, 0, dil,
+                                 vec);
     cp_async_commit();
     for (int k = 0; k < nchunk; ++k) {
       cp_async_wait_all();  // this thread's copies of chunk k have landed
       __syncthreads();      // everyone's have, and chunk k-1's buffer is free
       if (k + 1 < nchunk)
-        fwd_stage<P, NP, KG, NPG>(fwd_smem + ((k + 1) & 1) * T::BUF, row1,
-                                  row2, f1, r, m0, W, C, (k + 1) * T::CK,
-                                  dil, vec);
+        fwd_stage<E, P, NP, KG, NPG>(stage + ((k + 1) & 1) * T::BUF, row1,
+                                     row2, f1, r, m0, W, C, (k + 1) * T::CK,
+                                     dil, vec);
       cp_async_commit();
-      fwd_chunk<P, NP, KG, NPG>(fwd_smem + (k & 1) * T::BUF, a, lane, acc);
+      fwd_chunk<P, NP, KG, NPG>(stage + (k & 1) * T::BUF, a, lane, acc);
     }
     // the group's KG lanes, aligned within the warp
     const unsigned group = ((1u << KG) - 1) << (t % 32 / KG * KG);
@@ -310,10 +391,11 @@ corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 
   // consecutive threads write consecutive floats of each pixel's P outputs
   const int npix = min(T::TW, wr - m0);
-  float* orow = out + ((long long)b * H + h) * W * (P * P) + pi * P;
+  E* orow = out + ((long long)b * H + h) * W * (P * P) + pi * P;
   for (int e = t; e < npix * P; e += T::THREADS) {
     const int p = e / P, j = e - p * P;
-    orow[(long long)(r + dil * (m0 + p)) * (P * P) + j] = live ? so[e] : 0.f;
+    orow[(long long)(r + dil * (m0 + p)) * (P * P) + j] =
+        narrow<E>(live ? so[e] : 0.f);
   }
 }
 
@@ -323,40 +405,44 @@ corr_fwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 constexpr int NC = 8;
 constexpr int PX = 8;
 
-template <int P, int NP, int CG>
+template <typename E, int P, int NP, int CG>
 struct BwdTile {
   static constexpr int R = P / 2;
   static constexpr int TW = PX * NP;        // pixels (of one residue) a block
   static constexpr int SPAN = TW + P - 1;   // staged columns, halo included
   static constexpr int CB = CG * NC;        // channels a block
   static constexpr int THREADS = PX * CG;
-  // one buffer: values [SPAN][CB], then g [SPAN][P]; a multiple of 4 floats
-  // so that the second buffer's values stay 16-byte aligned
-  static constexpr int BUF = (SPAN * (CB + P) + 3) / 4 * 4;
+  // the values [SPAN][CB] of E, in floats (CB is even)
+  static constexpr int VALS = SPAN * CB * (int)sizeof(E) / 4;
+  // one buffer, in floats: the values, then g [SPAN][P] as floats; a
+  // multiple of 4 floats so that the second buffer's values stay 16-byte
+  // aligned
+  static constexpr int BUF = (VALS + SPAN * P + 3) / 4 * 4;
 };
 
 // Start the copies of displacement row pi into one buffer: the value row vy
 // (f2 for df1, f1 for df2) at the block's SPAN columns and CB channels, and
 // the P entries of g for row pi (at the block's TW pixels of row h for df1;
 // at the SPAN source pixels of row vy for df2). Zero outside the image.
-template <int P, int NP, int CG>
+template <typename E, int P, int NP, int CG>
 __device__ __forceinline__ void bwd_stage(
-    float* buf, const float* __restrict__ vals, const float* __restrict__ g,
+    float* buf, const E* __restrict__ vals, const E* __restrict__ g,
     bool second, int b, int h, int vy, int pi, int r, int m0, int H, int W,
     int C, int c0, int dil, bool vec) {
-  using T = BwdTile<P, NP, CG>;
+  using T = BwdTile<E, P, NP, CG>;
   constexpr int PP = P * P;
+  constexpr int V16 = VEC<E>;
   const int t = threadIdx.x;
-  float* sv = buf;
-  float* sg = buf + T::SPAN * T::CB;
-  const float* vrow = vals + ((long long)b * H + vy) * W * C;
-  if (vec) {  // C % 4 == 0: 16-byte copies, 16-byte aligned
-    constexpr int Q = T::CB / 4;
+  E* sv = reinterpret_cast<E*>(buf);
+  float* sg = buf + T::VALS;
+  const E* vrow = vals + ((long long)b * H + vy) * W * C;
+  if (vec) {  // C % V16 == 0: 16-byte copies, 16-byte aligned
+    constexpr int Q = T::CB / V16;
     for (int e = t; e < T::SPAN * Q; e += T::THREADS) {
       const int u = e / Q, q = e % Q;
-      const int m = m0 - T::R + u, x = r + dil * m, c = c0 + 4 * q;
+      const int m = m0 - T::R + u, x = r + dil * m, c = c0 + V16 * q;
       const bool ok = m >= 0 && x < W && c < C;
-      cp_async16(sv + u * T::CB + 4 * q,
+      cp_async16(sv + u * T::CB + V16 * q,
                  ok ? vrow + (long long)x * C + c : vals, ok);
     }
   } else {
@@ -364,18 +450,24 @@ __device__ __forceinline__ void bwd_stage(
       const int u = e / T::CB, k = e % T::CB;
       const int m = m0 - T::R + u, x = r + dil * m, c = c0 + k;
       const bool ok = m >= 0 && x < W && c < C;
-      cp_async4(sv + e, ok ? vrow + (long long)x * C + c : vals, ok);
+      if constexpr (std::is_same_v<E, float>)
+        cp_async4(sv + e, ok ? vrow + (long long)x * C + c : vals, ok);
+      else
+        sv[e] = ok ? vrow[(long long)x * C + c] : __float2bfloat16_rn(0.f);
     }
   }
-  const float* grow = g + ((long long)b * H + (second ? vy : h)) * W * PP
-                      + pi * P;
+  const E* grow = g + ((long long)b * H + (second ? vy : h)) * W * PP
+                  + pi * P;
   const int glen = second ? T::SPAN : T::TW;
   const int gm0 = second ? m0 - T::R : m0;
   for (int e = t; e < glen * P; e += T::THREADS) {
     const int u = e / P, j = e % P;
     const int m = gm0 + u, x = r + dil * m;
     const bool ok = m >= 0 && x < W;
-    cp_async4(sg + e, ok ? grow + (long long)x * PP + j : g, ok);
+    if constexpr (std::is_same_v<E, float>)
+      cp_async4(sg + e, ok ? grow + (long long)x * PP + j : g, ok);
+    else
+      sg[e] = ok ? widen(grow[(long long)x * PP + j]) : 0.f;
   }
 }
 
@@ -407,15 +499,38 @@ __device__ __forceinline__ void bwd_row(const float* sv, const float* sg,
   }
 }
 
+// The same for bf16 values, widened as they are read (the same channels:
+// two 8-byte loads of four).
+template <int P, int NP, int CG, bool SECOND>
+__device__ __forceinline__ void bwd_row(const bf16* sv, const float* sg,
+                                        int a, int cg, float (&acc)[NP][NC]) {
+  constexpr int CB = CG * NC;
+#pragma unroll
+  for (int s = 0; s < NP + P - 1; ++s) {
+    float v[NC];
+    widen4(sv + (a + s) * CB + cg * 4, v);
+    widen4(sv + (a + s) * CB + (CG + cg) * 4, v + 4);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int j = s - i;
+      if (j < 0 || j >= P) continue;
+      const float w = SECOND ? sg[(a + s) * P + (P - 1 - j)]
+                             : sg[(a + i) * P + j];
+#pragma unroll
+      for (int k = 0; k < NC; ++k) acc[i][k] = fmaf(w, v[k], acc[i][k]);
+    }
+  }
+}
+
 // Grid: x = residue r (mod dil) times column tile, y = image row h,
 // z = (output, batch, channel block), df1's blocks first.
-template <int P, int NP, int CG>
+template <typename E, int P, int NP, int CG>
 __global__ void __launch_bounds__(PX * CG)
-corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                const float* __restrict__ g, float* __restrict__ df1,
-                float* __restrict__ df2, int B, int H, int W, int C, int dil,
+corr_bwd_kernel(const E* __restrict__ f1, const E* __restrict__ f2,
+                const E* __restrict__ g, E* __restrict__ df1,
+                E* __restrict__ df2, int B, int H, int W, int C, int dil,
                 float inv_c) {
-  using T = BwdTile<P, NP, CG>;
+  using T = BwdTile<E, P, NP, CG>;
   constexpr int R = T::R;
   extern __shared__ __align__(16) float bwd_smem[];
 
@@ -430,8 +545,15 @@ corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int z = second ? blockIdx.z - B * ncb : blockIdx.z;
   const int b = z / ncb;
   const int c0 = (z % ncb) * T::CB;
-  const float* vals = second ? f1 : f2;
-  const bool vec = C % 4 == 0;
+  const E* vals = second ? f1 : f2;
+  // 16-byte copies of the values: float rows of C % 4 == 0 channels (torch
+  // allocates 16-byte aligned); bf16 rows of C % 8 == 0, inputs checked
+  bool vec;
+  if constexpr (std::is_same_v<E, float>)
+    vec = C % 4 == 0;
+  else
+    vec = C % 8 == 0 && (reinterpret_cast<uintptr_t>(f1)
+                         | reinterpret_cast<uintptr_t>(f2)) % 16 == 0;
   const int t = threadIdx.x;
   const int cg = t % CG;
   const int a = (t / CG) * NP;
@@ -451,45 +573,58 @@ corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 #pragma unroll
     for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
 
-  bwd_stage<P, NP, CG>(bwd_smem, vals, g, second, b, h, value_row(lo), lo, r,
-                       m0, H, W, C, c0, dil, vec);
+  bwd_stage<E, P, NP, CG>(bwd_smem, vals, g, second, b, h, value_row(lo), lo,
+                          r, m0, H, W, C, c0, dil, vec);
   cp_async_commit();
   for (int pi = lo; pi <= hi; ++pi) {
     float* buf = bwd_smem + ((pi - lo) & 1) * T::BUF;
     cp_async_wait_all();  // this thread's copies of row pi have landed
     __syncthreads();      // everyone's have, and row pi-1's buffer is free
     if (pi < hi)
-      bwd_stage<P, NP, CG>(bwd_smem + ((pi + 1 - lo) & 1) * T::BUF, vals, g,
-                           second, b, h, value_row(pi + 1), pi + 1, r, m0, H,
-                           W, C, c0, dil, vec);
+      bwd_stage<E, P, NP, CG>(bwd_smem + ((pi + 1 - lo) & 1) * T::BUF, vals,
+                              g, second, b, h, value_row(pi + 1), pi + 1, r,
+                              m0, H, W, C, c0, dil, vec);
     cp_async_commit();
-    const float* sg = buf + T::SPAN * T::CB;
+    const E* sv = reinterpret_cast<const E*>(buf);
+    const float* sg = buf + T::VALS;
     if (second)
-      bwd_row<P, NP, CG, true>(buf, sg, a, cg, acc);
+      bwd_row<P, NP, CG, true>(sv, sg, a, cg, acc);
     else
-      bwd_row<P, NP, CG, false>(buf, sg, a, cg, acc);
+      bwd_row<P, NP, CG, false>(sv, sg, a, cg, acc);
   }
 
   // each thread writes its own sums: consecutive threads cover consecutive
   // 16-byte chunks of a pixel's channels
-  float* out = second ? df2 : df1;
+  E* out = second ? df2 : df1;
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const int m = m0 + a + i;
     if (m >= wr) continue;
-    float* orow = out + (((long long)b * H + h) * W + r + dil * m) * C;
+    E* orow = out + (((long long)b * H + h) * W + r + dil * m) * C;
 #pragma unroll
     for (int q = 0; q < NC / 4; ++q) {
       const int c = c0 + (q * CG + cg) * 4;
       const float* s = &acc[i][4 * q];
       if (vec) {
-        if (c < C)
-          *reinterpret_cast<float4*>(orow + c) = make_float4(
-              s[0] * inv_c, s[1] * inv_c, s[2] * inv_c, s[3] * inv_c);
+        if (c < C) {
+          if constexpr (std::is_same_v<E, float>) {
+            *reinterpret_cast<float4*>(orow + c) = make_float4(
+                s[0] * inv_c, s[1] * inv_c, s[2] * inv_c, s[3] * inv_c);
+          } else {  // four bf16, 8 bytes: c is a multiple of 4
+            const __nv_bfloat162 lo =
+                __floats2bfloat162_rn(s[0] * inv_c, s[1] * inv_c);
+            const __nv_bfloat162 hi =
+                __floats2bfloat162_rn(s[2] * inv_c, s[3] * inv_c);
+            uint2 u;
+            u.x = *reinterpret_cast<const unsigned*>(&lo);
+            u.y = *reinterpret_cast<const unsigned*>(&hi);
+            *reinterpret_cast<uint2*>(orow + c) = u;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (c + e < C) orow[c + e] = s[e] * inv_c;
+          if (c + e < C) orow[c + e] = narrow<E>(s[e] * inv_c);
       }
     }
   }
@@ -526,17 +661,17 @@ cudaError_t with_patch(int patch, Fn fn) {
   }
 }
 
-template <int P, int NP, int CG>
-cudaError_t launch_bwd_tiles(const float* f1, const float* f2, const float* g,
-                             float* df1, float* df2, int B, int H, int W,
-                             int C, int dil, cudaStream_t stream) {
-  using T = BwdTile<P, NP, CG>;
+template <typename E, int P, int NP, int CG>
+cudaError_t launch_bwd_tiles(const E* f1, const E* f2, const E* g, E* df1,
+                             E* df2, int B, int H, int W, int C, int dil,
+                             cudaStream_t stream) {
+  using T = BwdTile<E, P, NP, CG>;
   const size_t smem = 2 * sizeof(float) * (size_t)T::BUF;
-  cudaError_t e = fit_smem(corr_bwd_kernel<P, NP, CG>, smem);
+  cudaError_t e = fit_smem(corr_bwd_kernel<E, P, NP, CG>, smem);
   if (e != cudaSuccess) return e;
   const int ntile = ((W + dil - 1) / dil + T::TW - 1) / T::TW;
   const dim3 grid(dil * ntile, H, 2 * B * ((C + T::CB - 1) / T::CB));
-  corr_bwd_kernel<P, NP, CG><<<grid, T::THREADS, smem, stream>>>(
+  corr_bwd_kernel<E, P, NP, CG><<<grid, T::THREADS, smem, stream>>>(
       f1, f2, g, df1, df2, B, H, W, C, dil, 1.0f / C);
   return cudaGetLastError();
 }
@@ -567,12 +702,12 @@ BwdShape bwd_shape(int B, int H, int W, int C, int dil) {
   return {np, cb / NC};
 }
 
-template <int P>
-cudaError_t launch_bwd(const float* f1, const float* f2, const float* g,
-                       float* df1, float* df2, int B, int H, int W, int C,
-                       int dil, cudaStream_t stream) {
+template <typename E, int P>
+cudaError_t launch_bwd(const E* f1, const E* f2, const E* g, E* df1, E* df2,
+                       int B, int H, int W, int C, int dil,
+                       cudaStream_t stream) {
   auto tiles = [&](auto np, auto cg) {
-    return launch_bwd_tiles<P, decltype(np)::value, decltype(cg)::value>(
+    return launch_bwd_tiles<E, P, decltype(np)::value, decltype(cg)::value>(
         f1, f2, g, df1, df2, B, H, W, C, dil, stream);
   };
   const BwdShape t = bwd_shape(B, H, W, C, dil);
@@ -607,49 +742,55 @@ FwdShape fwd_shape(int W, int C, int dil, int patch) {
 // pixel groups a block: 56 pixels on wide rows, 16 on narrow ones
 constexpr int fwd_groups(int np) { return np == 2 ? 8 : 56 / np; }
 
-template <int P, int NP, int KG>
-cudaError_t launch_fwd_tiles(const float* f1, const float* f2, float* out,
-                             int B, int H, int W, int C, int dil,
-                             cudaStream_t stream) {
+template <typename E, int P, int NP, int KG>
+cudaError_t launch_fwd_tiles(const E* f1, const E* f2, E* out, int B, int H,
+                             int W, int C, int dil, cudaStream_t stream) {
   constexpr int NPG = fwd_groups(NP);
-  using T = FwdTile<P, NP, KG, NPG>;
-  const size_t smem = sizeof(float) * (size_t)(C > T::CK ? 2 : 1) * T::BUF;
-  cudaError_t e = fit_smem(corr_fwd_kernel<P, NP, KG, NPG>, smem);
+  using T = FwdTile<E, P, NP, KG, NPG>;
+  const size_t smem = sizeof(E) * (size_t)(C > T::CK ? 2 : 1) * T::BUF;
+  cudaError_t e = fit_smem(corr_fwd_kernel<E, P, NP, KG, NPG>, smem);
   if (e != cudaSuccess) return e;
   const int ntile = ((W + dil - 1) / dil + T::TW - 1) / T::TW;
   const dim3 grid(dil * ntile, H, B * P);
-  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(f1)
-                                  | reinterpret_cast<uintptr_t>(f2)) % 16 == 0;
-  corr_fwd_kernel<P, NP, KG, NPG><<<grid, T::THREADS, smem, stream>>>(
+  const bool vec = C % VEC<E> == 0
+                   && (reinterpret_cast<uintptr_t>(f1)
+                       | reinterpret_cast<uintptr_t>(f2)) % 16 == 0;
+  corr_fwd_kernel<E, P, NP, KG, NPG><<<grid, T::THREADS, smem, stream>>>(
       f1, f2, out, H, W, C, dil, 1.0f / C, vec);
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t launch_fwd(const float* f1, const float* f2, float* out, int B,
-                       int H, int W, int C, int dil, cudaStream_t stream) {
+template <typename E, int P>
+cudaError_t launch_fwd(const E* f1, const E* f2, E* out, int B, int H, int W,
+                       int C, int dil, cudaStream_t stream) {
   const FwdShape t = fwd_shape(W, C, dil, P);
   if (t.np != 2)
-    return launch_fwd_tiles<P, fwd_wide_np(P), 8>(f1, f2, out, B, H, W, C,
-                                                  dil, stream);
+    return launch_fwd_tiles<E, P, fwd_wide_np(P), 8>(f1, f2, out, B, H, W, C,
+                                                     dil, stream);
   if (t.kg == 16)
-    return launch_fwd_tiles<P, 2, 16>(f1, f2, out, B, H, W, C, dil, stream);
-  return launch_fwd_tiles<P, 2, 8>(f1, f2, out, B, H, W, C, dil, stream);
+    return launch_fwd_tiles<E, P, 2, 16>(f1, f2, out, B, H, W, C, dil,
+                                         stream);
+  return launch_fwd_tiles<E, P, 2, 8>(f1, f2, out, B, H, W, C, dil, stream);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns a cudaError_t: 0 when the
-// launch was accepted. The caller checks shapes, types and contiguity.
+// launch was accepted. The caller checks shapes, types and contiguity. The
+// source compiles twice, in parallel (ops/_build.py): the float32 entries,
+// and with CC_CORRELATION_BF16 the bf16 ones; each instantiates its own
+// type's kernels.
+#ifndef CC_CORRELATION_BF16
 extern "C" int cc_correlation_forward(const float* f1, const float* f2,
                                       float* out, int B, int H, int W, int C,
                                       int patch, int dilation, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_patch(patch, [&](auto p) {
-    return launch_fwd<decltype(p)::value>(f1, f2, out, B, H, W, C, dilation,
-                                          s);
+    return launch_fwd<float, decltype(p)::value>(f1, f2, out, B, H, W, C,
+                                                 dilation, s);
   });
 }
+
 
 // The forward's tiles for a shape, as cc_correlation_forward takes them:
 // pixels of one residue class a block, pixels a thread, channels a chunk.
@@ -659,7 +800,7 @@ extern "C" void cc_correlation_forward_tiles(int W, int C, int patch,
   const FwdShape t = fwd_shape(W, C, dilation, patch);
   *pixels = fwd_groups(t.np) * t.np;
   *per_thread = t.np;
-  *channels = 4 * t.kg;
+  *channels = 4 * t.kg;  // 8 * t.kg in a bf16 launch
 }
 
 // The backward's tiles for a shape, as cc_correlation_backward takes them:
@@ -678,7 +819,37 @@ extern "C" int cc_correlation_backward(const float* f1, const float* f2,
                                        int dilation, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_patch(patch, [&](auto p) {
-    return launch_bwd<decltype(p)::value>(f1, f2, g, df1, df2, B, H, W, C,
-                                          dilation, s);
+    return launch_bwd<float, decltype(p)::value>(f1, f2, g, df1, df2, B, H,
+                                                 W, C, dilation, s);
   });
 }
+
+#else
+// The same for bf16 f1, f2 and out (pointers to __nv_bfloat16).
+extern "C" int cc_correlation_forward_bf16(const void* f1, const void* f2,
+                                           void* out, int B, int H, int W,
+                                           int C, int patch, int dilation,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_patch(patch, [&](auto p) {
+    return launch_fwd<bf16, decltype(p)::value>(
+        static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
+        static_cast<bf16*>(out), B, H, W, C, dilation, s);
+  });
+}
+
+// The same for bf16 f1, f2, g, df1 and df2 (pointers to __nv_bfloat16).
+extern "C" int cc_correlation_backward_bf16(const void* f1, const void* f2,
+                                            const void* g, void* df1,
+                                            void* df2, int B, int H, int W,
+                                            int C, int patch, int dilation,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_patch(patch, [&](auto p) {
+    return launch_bwd<bf16, decltype(p)::value>(
+        static_cast<const bf16*>(f1), static_cast<const bf16*>(f2),
+        static_cast<const bf16*>(g), static_cast<bf16*>(df1),
+        static_cast<bf16*>(df2), B, H, W, C, dilation, s);
+  });
+}
+#endif  // CC_CORRELATION_BF16

@@ -10,12 +10,21 @@ CC alternation: a frozen net (--fix-*) has its outputs detached, which is
 requires_grad=False here since no net reads another's outputs, and the
 optimizer leaves its parameters and moments alone. Every net stays in
 train mode, so BatchNorm running stats move in every phase.
+
+Mixed precision as cc_tpu's (cc_tpu/train/state.py:166-193, step.py:104-113):
+compute_dtype "bfloat16" runs each net wholly in bf16, on bf16 copies of its
+float32 master parameters, and casts its outputs back to float32; loss_dtype
+"bfloat16" casts the images and the explainability masks to bf16 at the
+loss boundary, while depth, pose, flows and intrinsics stay float32. The
+master parameters, the gradients, Adam and every scalar loss stay float32.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cc_tpu_torch.geometry.warp import pose2flow
@@ -36,6 +45,7 @@ from cc_tpu_torch.train.config import TrainConfig
 from cc_tpu_torch.train.state import NETS, AdamState, make_optimizer
 
 FLOWNETS = ("Back2Future", "FlowNetC6")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 METRICS = ("loss", "photo_cam_loss", "explainability_loss", "smooth_loss",
            "photo_flow_loss", "consensus_loss")
 
@@ -65,14 +75,68 @@ def _nhwc_all(x):
     return _nhwc(x)
 
 
+def _cast_floats(x, dtype: torch.dtype):
+    """The floating tensors of x (a tensor, or a list or tuple of them, or
+    None) cast to dtype; anything else as it is."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast_floats(t, dtype) for t in x)
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    return x
+
+
+class _WideCpuConvolutions(torch.overrides.TorchFunctionMode):
+    """bf16 convolutions of CPU tensors computed in float32 and rounded
+    once to bf16: what a bf16 convolution computes (float32 sums, one
+    rounding), without the CPU's bf16 kernel. torch 2.13's oneDNN bf16
+    convolution backward leaves garbage, at times NaN, in the weight
+    gradient of taps that read only padding (a 3x3 kernel on a 1x1 input
+    with padding 1, as PoseNetB6's conv8 at 128x128), in about one call in
+    ten. CUDA tensors are left to cuDNN."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func in (F.conv2d, F.conv_transpose2d)
+                and args[0].dtype == torch.bfloat16
+                and args[0].device.type == "cpu"):
+            out = func(*_cast_floats(args, torch.float32),
+                       **{k: _cast_floats(v, torch.float32)
+                          for k, v in kwargs.items()})
+            return out.to(torch.bfloat16)
+        return func(*args, **kwargs)
+
+
+def apply_net(net: nn.Module, compute_dtype: str, *args):
+    """net(*args), the counterpart of cc_tpu's apply_net: with compute_dtype
+    "bfloat16" the net runs on bf16 copies of its float parameters (the
+    casts are autograd ops, so the gradients land on the float32 masters;
+    the buffers, BatchNorm's running stats among them, stay float32) and
+    on bf16 inputs, and its outputs are cast back to float32. A net on the
+    CPU sums its convolutions in float32 (_WideCpuConvolutions); a net on
+    the card runs without the mode."""
+    if compute_dtype == "float32":
+        return net(*args)
+    dtype = DTYPES[compute_dtype]
+    params = {k: p.to(dtype) for k, p in net.named_parameters()}
+    # on the card no Python hook sees every torch call of the forward
+    on_cpu = next(iter(params.values())).device.type == "cpu"
+    with _WideCpuConvolutions() if on_cpu else contextlib.nullcontext():
+        out = torch.func.functional_call(net, params,
+                                         _cast_floats(args, dtype))
+    return _cast_floats(out, torch.float32)
+
+
 def check_ported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not run:
-    bf16, a flow net other than FLOWNETS, or PoseExpNet as C, whose
-    (masks, pose) output cc_tpu's step passes on as the pose
-    (cc_tpu/train/step.py:66-67) and then indexes as one (:145), so that
-    cc_tpu cannot train or evaluate with it either."""
-    if cfg.compute_dtype != "float32" or cfg.loss_dtype != "float32":
-        raise NotImplementedError("only float32 is ported so far")
+    a compute or loss dtype other than DTYPES', a flow net other than
+    FLOWNETS, or PoseExpNet as C, whose (masks, pose) output cc_tpu's step
+    passes on as the pose (cc_tpu/train/step.py:66-67) and then indexes as
+    one (:145), so that cc_tpu cannot train or evaluate with it either."""
+    for field in ("compute_dtype", "loss_dtype"):
+        if getattr(cfg, field) not in DTYPES:
+            raise NotImplementedError(
+                f"{field} {getattr(cfg, field)!r}: the port runs "
+                f"{' and '.join(DTYPES)}")
     if cfg.flownet not in FLOWNETS:
         raise NotImplementedError(f"flownet {cfg.flownet!r} is not ported yet")
     if cfg.posenet == "PoseExpNet":
@@ -95,14 +159,15 @@ def forward_all(cfg: TrainConfig, nets: nn.ModuleDict, batch: dict,
     tgt_c = _nchw(tgt)
     refs_c = [_nchw(refs_all[:, i]) for i in range(refs_all.shape[1])]
 
-    disparities = nets["disp"](tgt_c)
-    pose = nets["pose"](tgt_c, refs_c)
-    exp_masks = nets["mask"](tgt_c, refs_c)
+    run = lambda name, *args: apply_net(nets[name], cfg.compute_dtype, *args)
+    disparities = run("disp", tgt_c)
+    pose = run("pose", tgt_c, refs_c)
+    exp_masks = run("mask", tgt_c, refs_c)
     if cfg.flownet == "Back2Future":
-        flow_fwd, flow_bwd, occ = nets["flow"](tgt_c, refs_c[1:3])
+        flow_fwd, flow_bwd, occ = run("flow", tgt_c, refs_c[1:3])
     else:  # a two-frame net, run once per direction
-        flow_fwd = nets["flow"](tgt_c, refs_c[2])
-        flow_bwd = nets["flow"](tgt_c, refs_c[1])
+        flow_fwd = run("flow", tgt_c, refs_c[2])
+        flow_bwd = run("flow", tgt_c, refs_c[1])
         occ = None
     return dict(
         disparities=_nhwc_all(disparities), pose=pose,
@@ -140,6 +205,13 @@ def compute_losses(cfg: TrainConfig, outputs: dict, batch: dict):
     outputs. Returns (total, metrics); a loss whose weight is 0 is not
     computed and reports 0."""
     tgt, refs = outputs["tgt"], outputs["refs"]
+    exp_masks = outputs["exp_masks"]
+    if cfg.loss_dtype != "float32":
+        # the image payloads and the masks; coordinates stay float32
+        dtype = DTYPES[cfg.loss_dtype]
+        tgt = tgt.to(dtype)
+        refs = [r.to(dtype) for r in refs]
+        exp_masks = [m.to(dtype) for m in exp_masks]
     device = tgt.device
     k = torch.as_tensor(batch["intrinsics"]).to(device)
     k_inv = torch.as_tensor(batch["intrinsics_inv"]).to(device)
@@ -149,7 +221,7 @@ def compute_losses(cfg: TrainConfig, outputs: dict, batch: dict):
         disparities = [spatial_normalize(d) for d in disparities]
     depth = _maybe_detach([1.0 / d for d in disparities], cfg.fix_dispnet)
     pose = _maybe_detach(outputs["pose"], cfg.fix_posenet)
-    exp_masks = _maybe_detach(outputs["exp_masks"], cfg.fix_masknet)
+    exp_masks = _maybe_detach(exp_masks, cfg.fix_masknet)
     flow_fwd = _maybe_detach(outputs["flow_fwd"], cfg.fix_flownet)
     flow_bwd = _maybe_detach(outputs["flow_bwd"], cfg.fix_flownet)
 

@@ -115,8 +115,25 @@ non-zero (also when CUDA is absent, or when the package is not beside it):
    cli.mnist_eval of mnist_best.pt on the card and on the CPU: logits
    within 1e-4 over the test sets, error rates equal but for samples
    within 1e-4 of a tie (counted).
-18. kernels: one entry per kernel; its launches, times and bound per run
-   of each path that runs it (`paths`), the first path's at the top level.
+18. bf16: compute_dtype and loss_dtype bfloat16. First, right after the
+   float32 kernels (phase 3), the bf16 instantiations of K1 and K1'
+   against their plain bf16 versions at Back2Future's five shapes and
+   FlowNetC6's (K1 also at batch 1): one bf16 rounding plus a sum-order
+   term an element, equal bits on a second launch, CUDA-graph times
+   beside the float32 instantiation's and the bound (bf16 bytes or fp32
+   FMA work). Then, after ddp: the guarded bf16 step (compute bfloat16,
+   clip 5, non-finite guard) at bench.py's point with each flow net: 10
+   steps finite, 10 bf16 K1 and 10 bf16 K1' a Back2Future step, 2 and 2 a
+   FlowNetC6 step, none of float32, 0 K1' with F frozen, ms beside the
+   float32 step's, peak memory and the idle share; for Back2Future with
+   loss_dtype bfloat16 too, timed. The bf16 eval forwards (ms beside
+   float32's, bf16 K1 launches); the bf16 step at 128x128 b2 on the card
+   against the CPU's, by tests/test_torch_bf16.py's yardstick; the train
+   CLI with the four bf16 flags for an epoch with flow validation, then a
+   resumed step (launches all bf16, float32 master weights saved).
+19. kernels: one entry per kernel; its launches, times and bound per run
+   of each path that runs it (`paths`), the first path's at the top level;
+   the bf16 instantiations of K1 and K1' as entries of their own.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -619,6 +636,7 @@ def phase_timing(cfg, nets, batch, gpu: str):
     prof["convolution_tflop_per_s"] = (sum(gflop.values())
                                        / prof["convolution_ms"])
     emit(prof)
+    return ms
 
 
 def _count_step(step, batch) -> tuple[dict, int, int]:
@@ -1170,7 +1188,7 @@ def _cli_run(name: str, argv: list[str], flownet: str, val_n: int,
     val_n flow-validation items and depth_n depth-validation frames an
     epoch: checks its launches, finite losses and errors, and its
     checkpoint files, which must load. Returns its JSON line."""
-    corr.launches = corr.backward_launches = 0
+    corr.reset_launches()
     t0 = time.perf_counter()
     records = train_cli.main(argv)
     torch.cuda.synchronize()
@@ -2256,6 +2274,362 @@ def phase_mnist(gpu: str) -> None:
         raise AssertionError("mnist: " + "; ".join(failures))
 
 
+# bf16: the guarded recipe a user trains with (tests/test_bf16_step.py)
+GUARDED = dict(compute_dtype="bfloat16", clip_grad_norm=5.0,
+               skip_nonfinite_updates=True)
+BF16_FLAGS = ["--compute-dtype", "bfloat16", "--loss-dtype", "bfloat16",
+              "--clip-grad-norm", "5", "--skip-nonfinite-updates"]
+BF16 = torch.bfloat16
+# a bf16 kernel against its plain version before the plain version's one
+# rounding: one bf16 rounding (2**-8 of the value) plus an fp32 sum-order
+# term, 2**-20 of the sum of the terms' magnitudes (mean_c |f1*f2| for K1)
+BF16_RTOL, BF16_SUM_TOL = 2.0 ** -8, 2.0 ** -20
+# the steps of the guarded bf16 step held finite
+BF16_FINITE_STEPS = 10
+
+
+def phase_correlation_bf16(bw, flops):
+    """The bf16 instantiations of K1 and K1' against their plain bf16
+    versions at the main paths' shapes (Back2Future's five, FlowNetC6's, and
+    for K1 Back2Future's at batch 1, the validation forwards): each output
+    element within BF16_RTOL of the plain version's float32 sum before its
+    rounding plus BF16_SUM_TOL of the sum of the terms' magnitudes; the
+    elements where it differs from the rounded plain version counted; the
+    same bits on a second launch; the CUDA-graph time beside the float32
+    instantiation's on the same values, and the bound: the bytes at bf16
+    width or the float32 FMA work (the kernel widens), the larger."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {"fwd": [], "bwd": []}
+    failures = []
+    for kind in ("fwd", "bwd"):
+        cases = B2F_CASES + C6_CASES
+        if kind == "fwd":
+            cases = cases + B1_CASES["Back2Future"]
+        for shape, patch, dil in cases:
+            f1 = torch.randn(shape, generator=gen, device="cuda").to(BF16)
+            f2 = torch.randn(shape, generator=gen, device="cuda").to(BF16)
+            g = torch.randn((*shape[:3], patch * patch), generator=gen,
+                            device="cuda").to(BF16)
+            w1, w2, wg = f1.float(), f2.float(), g.float()
+            if kind == "fwd":
+                kernel = lambda: (corr.correlation_cuda(f1, f2, patch, dil),)
+                kernel32 = lambda: corr.correlation_cuda(w1, w2, patch, dil)
+                plain = lambda: (corr.correlation_plain(f1, f2, patch, dil),)
+                wide = (corr.correlation_plain(w1, w2, patch, dil),)
+                scale = (corr.correlation_plain(w1.abs(), w2.abs(), patch,
+                                                dil),)
+            else:
+                kernel = lambda: corr.correlation_backward_cuda(
+                    f1, f2, g, patch, dil)
+                kernel32 = lambda: corr.correlation_backward_cuda(
+                    w1, w2, wg, patch, dil)
+                plain = lambda: corr.correlation_backward_plain(
+                    f1, f2, g, patch, dil)
+                wide = corr.correlation_backward_plain(w1, w2, wg, patch, dil)
+                scale = corr.correlation_backward_plain(
+                    w1.abs(), w2.abs(), wg.abs(), patch, dil)
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            excess = max(float(((o.float() - w).abs()
+                                - BF16_RTOL * w.abs() - BF16_SUM_TOL * a)
+                               .max()) for o, w, a in zip(out, wide, scale))
+            err = max(float((o.float() - r.float()).abs().max())
+                      for o, r in zip(out, ref))
+            differ = sum(int((o != r).sum()) for o, r in zip(out, ref))
+            where = f"{kind} bf16 at {shape} P={patch} d={dil}"
+            if any(o.dtype != BF16 for o in out):
+                failures.append(f"{where}: {[o.dtype for o in out]} out")
+            if not all(map(torch.equal, kernel(), out)):
+                failures.append(f"{where}: two launches differ")
+            if not excess <= 0:
+                failures.append(f"{where}: {excess} beyond the bound")
+            nbytes, ops = corr_work(shape, patch, kind == "bwd")
+            bnd, by = bound_ms(nbytes / 2, ops, bw, flops)
+            row = {"phase": "kernel_bf16",
+                   "name": ("correlation_backward" if kind == "bwd"
+                            else "correlation_forward") + "_bf16",
+                   "shape": list(shape), "patch": patch, "dilation": dil,
+                   "max_abs_err": err, "elements_differing": differ,
+                   "elements": sum(o.numel() for o in out),
+                   "excess_over_bound": excess, "ms": time_device(kernel),
+                   "fp32_ms": time_device(kernel32),
+                   "plain_ms": time_device(plain, n=5, reps=3),
+                   "bound_us": bnd * 1e3, "bound_by": by}
+            emit(row)
+            rows[kind].append(row)
+            del f1, f2, g, w1, w2, wg, out, ref, wide, scale
+    if failures:
+        raise AssertionError("bf16 kernels: " + "; ".join(failures))
+    return rows
+
+
+def _dtype_counts() -> dict:
+    return {str(d).split(".")[-1]: [corr.dtype_launches[d],
+                                    corr.dtype_backward_launches[d]]
+            for d in corr.DTYPES}
+
+
+def _count_bf16(run) -> tuple:
+    """run() with every launch count set to 0 just before it: its result
+    and (K1, K1') of the bf16 instantiations; raises if a float32 one
+    launched."""
+    corr.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    if corr.dtype_launches[torch.float32] or corr.dtype_backward_launches[
+            torch.float32]:
+        raise AssertionError(f"float32 correlation launches in a bf16 run: "
+                             f"{_dtype_counts()}")
+    return out, (corr.dtype_launches[BF16],
+                 corr.dtype_backward_launches[BF16])
+
+
+def phase_bf16_step(gpu: str, flownet: str, fp32_ms: float):
+    """The guarded bf16 train step (GUARDED) at bench.py's operating point:
+    BF16_FINITE_STEPS steps with finite metrics, the bf16 K1 and K1'
+    launches of one step (as the float32 step's), a fix_flownet step with
+    no K1'; ms a step (5 warm-up steps, then the median of 3 windows of 5)
+    beside the float32 step's of this call, the peak memory and a profile
+    (the device's idle share). For Back2Future, the same with loss_dtype
+    bfloat16 too (the train CLI's four flags), timed. Returns the launches
+    and the ms."""
+    cfg = TrainConfig(height=256, width=832, batch_size=B, flownet=flownet,
+                      **BENCH, **GUARDED)
+    nets = make_models(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    opt_state = make_optimizer(cfg).init(nets)
+    step = build_train_step(cfg, nets, opt_state)
+    batch = seeded_batch(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    t0 = time.perf_counter()
+    warm = [_finite(step(batch))]
+    seconds["first_step"] = time.perf_counter() - t0
+    warm += [_finite(step(batch)) for _ in range(4)]
+    metrics, (k1, k1b) = _count_bf16(lambda: step(batch))
+    values = [*warm, _finite(metrics)]
+    values += [_finite(step(batch))
+               for _ in range(BF16_FINITE_STEPS - len(values))]
+    expect = _expect_launches(flownet)
+    if (k1, k1b) != (expect, expect):
+        raise AssertionError(f"bf16 {flownet} step: {k1} K1 and {k1b} K1' "
+                             f"bf16 launches, expected {expect} of each")
+    seconds["steps"] = time.perf_counter() - t0
+    windows = timed_windows(lambda: step(batch), 5)
+    ms = statistics.median(windows)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    seconds["windows"] = time.perf_counter() - t0
+    # one step profiled: a window of three (the float32 phases') takes
+    # about 85 s to summarize
+    prof = profile_breakdown(lambda: step(batch), 1, ms,
+                             f"bf16 train step {flownet}, per step")
+    emit(prof)
+    seconds["profile"] = time.perf_counter() - t0
+    frozen = build_train_step(cfg.replace(fix_flownet=True), nets, opt_state)
+    fmetrics, (f_k1, f_k1b) = _count_bf16(lambda: frozen(batch))
+    seconds["fix_flownet"] = time.perf_counter() - t0
+    _finite(fmetrics)
+    if (f_k1, f_k1b) != (expect, 0):
+        raise AssertionError(f"bf16 {flownet} fix_flownet step: {f_k1} K1, "
+                             f"{f_k1b} K1' bf16 launches")
+    row = {"phase": FLOWNETS[flownet][1] + "bf16_train",
+           "what": f"guarded bf16 train step {flownet} 832x256 b4 "
+                   "(compute_dtype bfloat16, clip 5, non-finite guard)",
+           "gpu": gpu, "ms_per_step": ms, "window_ms": windows,
+           "fp32_ms_per_step": fp32_ms, "speedup_over_fp32": fp32_ms / ms,
+           "frames_per_s": cfg.batch_size * 1e3 / ms,
+           "peak_memory_gib": peak, "idle_share": prof["idle_share"],
+           "kernel_ms": prof["kernel_ms"],
+           "losses": [v["loss"] for v in values],
+           "k1_bf16_launches": k1, "k1b_bf16_launches": k1b,
+           "fix_flownet_k1_k1b": [f_k1, f_k1b],
+           "adam": [opt_state.count, opt_state.notfinite]}
+    if flownet == "Back2Future":
+        both = build_train_step(cfg.replace(loss_dtype="bfloat16"), nets,
+                                opt_state)
+        for _ in range(3):
+            _finite(both(batch))
+        loss_windows = timed_windows(lambda: both(batch), 5)
+        row["loss_bf16_ms_per_step"] = statistics.median(loss_windows)
+        row["loss_bf16_window_ms"] = loss_windows
+        seconds["loss_bf16"] = time.perf_counter() - t0
+    row["seconds_since_start"] = seconds
+    emit(row)
+    del nets, opt_state, step, frozen, batch
+    torch.cuda.empty_cache()
+    return (k1, k1b), ms
+
+
+def phase_bf16_eval(gpu: str, flownet: str, fp32_ms: float):
+    """forward_eval with compute_dtype bfloat16 at 832x256 b4: its bf16 K1
+    launches, finite float32 outputs, ms (median of 3 windows of 10)
+    beside the float32 forward's of this call."""
+    cfg = TrainConfig(flownet=flownet, compute_dtype="bfloat16")
+    nets = make_models(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    batch = seeded_batch(cfg, "cuda")
+    forward_eval(cfg, nets, batch)
+    out, (k1, k1b) = _count_bf16(lambda: forward_eval(cfg, nets, batch))
+    if (k1, k1b) != (_expect_launches(flownet), 0):
+        raise AssertionError(f"bf16 {flownet} forward: {k1} K1, {k1b} K1'")
+    for k, v in out.items():
+        if v is not None and (v.dtype != torch.float32
+                              or not bool(torch.isfinite(v).all())):
+            raise AssertionError(f"bf16 forward {k}: {v.dtype}, finite "
+                                 f"{bool(torch.isfinite(v).all())}")
+    windows = timed_windows(lambda: forward_eval(cfg, nets, batch), 10)
+    ms = statistics.median(windows)
+    emit({"phase": FLOWNETS[flownet][1] + "bf16_timing", "gpu": gpu,
+          "what": f"forward_eval {flownet} 832x256 b4 bf16",
+          "ms_per_forward": ms, "window_ms": windows, "fp32_ms": fp32_ms,
+          "k1_bf16_launches": k1})
+    del nets, batch, out
+    torch.cuda.empty_cache()
+    return k1, ms
+
+
+def phase_bf16_vs_cpu() -> None:
+    """The guarded bf16 step at 128x128 batch 2 on the card against the
+    same step on the CPU (plain kernels), from the same weights and batch,
+    by tests/test_torch_bf16.py's yardstick (torch_port_util.check_bf16)
+    with the CPU's float32 step as the reference distance: the metrics (one
+    vector), each BatchNorm running stat, and each net's update
+    (check_bf16_update: the yardstick on the update, and its sign where the
+    CPU's gradients lie far above Adam's eps, which fails masters left as
+    they are); every parameter within 2*lr of the CPU's."""
+    util = _port_util()
+    cfg16 = TrainConfig(height=128, width=128, batch_size=2, **BENCH,
+                        **GUARDED)
+    cfg32 = cfg16.replace(compute_dtype="float32")
+    nets = make_models(cfg16, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+    theta0 = {k: v.detach().clone() for k, v in nets.state_dict().items()}
+    batch = seeded_batch(cfg16, "cpu", seed=1)
+    runs, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        for key, cfg in (("bf16", cfg16), ("fp32", cfg32)):
+            n = copy.deepcopy(nets).to(dev)
+            st = make_optimizer(cfg).init(n)
+            m = build_train_step(cfg, n, st)(
+                {k: v.to(dev) for k, v in batch.items()})
+            runs[dev, key] = (torch.tensor([float(m[k]) for k in METRICS]),
+                              {k: v.detach().cpu() for k, v in
+                               n.state_dict().items()})
+            if dev == "cpu":
+                grads[key] = {
+                    f"{name}.{k}": mu.cpu() / (1.0 - cfg.momentum)
+                    for name in st.mu for (k, _), mu in zip(
+                        n[name].named_parameters(), st.mu[name])}
+            del n, st
+    failures = []
+
+    def yardstick(check, name, *runs_of):
+        try:
+            return check(name, *runs_of)
+        except AssertionError as e:
+            failures.append(str(e))
+            return {"failed": str(e)}
+    vec = lambda dev, key: runs[dev, key][0]
+    report = {"metrics": yardstick(
+        util.check_bf16, "metrics", vec("cuda", "bf16"), vec("cuda", "fp32"),
+        vec("cpu", "bf16"), vec("cpu", "fp32"))}
+    card, cpu = runs["cuda", "bf16"][1], runs["cpu", "bf16"][1]
+    param_err, stats = 0.0, {}
+    for k, v in cpu.items():
+        if not v.is_floating_point():
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            stats[k] = yardstick(util.check_bf16, k, card[k],
+                                 runs["cuda", "fp32"][1][k], v,
+                                 runs["cpu", "fp32"][1][k])
+        else:
+            param_err = max(param_err, float((card[k] - v).abs().max()))
+    if not param_err <= 2 * cfg16.lr + 1e-6:
+        failures.append(f"params {param_err} > 2*lr")
+    updates = {}
+    for name in NETS:
+        pick = lambda d: {k: d[k] for k in grads["bf16"]
+                          if k.startswith(name + ".")}
+        updates[name] = yardstick(
+            util.check_bf16_update, name, pick(theta0), pick(card),
+            pick(runs["cuda", "fp32"][1]), pick(cpu),
+            pick(runs["cpu", "fp32"][1]), pick(grads["bf16"]),
+            pick(grads["fp32"]))
+    report.update(param_max_abs_err=param_err, param_tol=2 * cfg16.lr + 1e-6,
+                  updates=updates,
+                  worst_stats=sorted(
+                      stats.items(),
+                      key=lambda kv: -kv[1].get("rel_port_cc", 1.0))[:3])
+    emit({"phase": "bf16_vs_cpu", "hw": [128, 128], "batch": 2,
+          "metrics_card": vec("cuda", "bf16").tolist(),
+          "metrics_cpu": vec("cpu", "bf16").tolist(), **report})
+    if failures:
+        raise AssertionError("bf16 step, card vs CPU: " + "; ".join(failures))
+
+
+def phase_bf16(root: str, gpu: str, step_ms: dict, eval_ms: dict) -> dict:
+    """bf16 mixed precision on the card (compute_dtype and loss_dtype
+    bfloat16): the guarded step and the eval forward with each flow net,
+    the step against the CPU's, and the train CLI with the four flags.
+    Returns the bf16 K1 and K1' launches of each path's run."""
+    t0 = time.perf_counter()
+    launches = {}
+    for flownet in FLOWNETS:
+        launches["step", flownet], _ = phase_bf16_step(gpu, flownet,
+                                                       step_ms[flownet])
+        launches["eval", flownet], _ = phase_bf16_eval(gpu, flownet,
+                                                       eval_ms[flownet])
+    phase_bf16_vs_cpu()
+    launches["cli"] = phase_bf16_cli(root, gpu, step_ms["Back2Future"])
+    emit({"phase": "bf16", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_bf16_cli(root: str, gpu: str, step_ms: float) -> tuple:
+    """The train CLI with the four bf16 flags (BF16_FLAGS) at bench.py's
+    point: an epoch of 2 steps with flow validation on 2 items of a
+    synthetic KITTI 2015 tree, then --resume for a step; every K1 and K1'
+    launch the bf16 instantiation's, as many as the runs imply, the
+    checkpoint's master weights float32. Returns (K1, K1', steps, training
+    image forwards, validation items) of the first run's epoch."""
+    cwd = os.getcwd()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = synthetic_kitti2015(os.path.join(tmp, "kitti2015"), 2)
+        os.makedirs(os.path.join(tmp, "run"))
+        os.chdir(os.path.join(tmp, "run"))
+        try:
+            argv = bench_cli_argv(root, kitti) + [
+                "--name", "bf16", "--epochs", "1", "--with-flow-gt",
+                "--val-flow-N", "2", "--print-freq", "1", *BF16_FLAGS]
+            for name, more in (("bf16", ["--epoch-size", "2"]),
+                               ("bf16 --resume", ["--epoch-size", "1",
+                                                  "--resume"])):
+                row = _cli_run(name, argv + more, "Back2Future", 2, 0, 0,
+                               True, gpu, step_ms)
+                row["launches_by_dtype"] = counts = _dtype_counts()
+                if counts["bfloat16"] != [row["k1_launches"],
+                                          row["k1b_launches"]]:
+                    raise AssertionError(f"train CLI {name}: {counts}")
+                rows.append(row)
+            state = torch.load("checkpoints/bf16/checkpoint.pt",
+                               map_location="cpu", weights_only=True)
+            dtypes = {str(t.dtype) for g in ("nets", "mu", "nu")
+                      for n in NETS for t in state[g][n].values()}
+            rows[-1]["checkpoint_dtypes"] = sorted(dtypes)
+            if "torch.bfloat16" in dtypes or state["step"] != 3:
+                raise AssertionError(f"bf16 checkpoint: {dtypes}, step "
+                                     f"{state['step']}")
+        finally:
+            os.chdir(cwd)
+    for row in rows:
+        row["phase"] = "bf16_train_cli"
+        emit(row)
+    first = rows[0]
+    return (first["k1_launches"], first["k1b_launches"], first["steps"],
+            first["training_image_forwards"], first["flow_validation_items"])
+
+
 def path_entry(path: str, rows, launches: int,
                per_shape: int = LAUNCHES_PER_SHAPE, more=()) -> dict:
     """A kernel's work on one run of a path: `per_shape` launches at each
@@ -2319,16 +2693,18 @@ def main() -> int:
 
     fwd_rows = phase_correlation(bw, flops, backward=False)
     bwd_rows = phase_correlation(bw, flops, backward=True)
+    bf16_rows = phase_correlation_bf16(bw, flops)
     gather_row = phase_row_gather(bw, flops)
     gather_launches = phase_gather_path()
 
     launches = {}  # (flownet, "eval" | "step") -> (K1, K1') on that run
     step_ms = {}  # flownet -> the resident train step's median ms
+    eval_ms = {}  # flownet -> the eval forward's median ms
     for flownet in FLOWNETS:
         cfg = TrainConfig(flownet=flownet)
         nets, batch, k1_eval = phase_slice(cfg)
         launches[flownet, "eval"] = (k1_eval, 0)
-        phase_timing(cfg, nets, batch, gpu)
+        eval_ms[flownet] = phase_timing(cfg, nets, batch, gpu)
         del nets, batch
         torch.cuda.empty_cache()
         launches[flownet, "step"], step_ms[flownet] = phase_train(
@@ -2348,6 +2724,7 @@ def main() -> int:
         add_depth_val_scene(roots[256, 832], 256, 832, frames=8)
         cli = phase_train_cli(roots[256, 832], gpu, step_ms)
         ddp_launches = phase_ddp(roots[256, 832], gpu)
+        bf16 = phase_bf16(roots[256, 832], gpu, step_ms, eval_ms)
     eval_k1 = phase_eval_cli(gpu)
     cli["Back2Future ETL dump"] = phase_etl(gpu, step_ms["Back2Future"])
     phase_mnist(gpu)
@@ -2406,6 +2783,29 @@ def main() -> int:
                            k1, EVAL_K1_PER_ITEM[flownet]
                            // len(b1[flownet]) * items)
                 for name, (k1, items, flownet) in eval_k1.items()]
+    # the bf16 instantiations: their rows at Back2Future's shapes,
+    # FlowNetC6's, then (K1) Back2Future's at batch 1
+    for kind, k in (("fwd", 0), ("bwd", 1)):
+        rows = bf16_rows[kind]
+        b2f, c6 = rows[:n_b2f], rows[n_b2f:n_b2f + n_c6]
+        k1, k1b, steps, outputs, items = bf16["cli"]
+        corr_paths[kind + "_bf16"] = [
+            path_entry("Back2Future train step, guarded bf16", b2f,
+                       bf16["step", "Back2Future"][k]),
+            path_entry("FlowNetC6 train step, guarded bf16", c6,
+                       bf16["step", "FlowNetC6"][k]),
+            path_entry("Back2Future train CLI epoch, four bf16 flags", b2f,
+                       k1b, LAUNCHES_PER_SHAPE * steps) if kind == "bwd"
+            else path_entry("Back2Future train CLI epoch, four bf16 flags",
+                            b2f, k1, LAUNCHES_PER_SHAPE * (steps + outputs),
+                            more=[(rows[n_b2f + n_c6:],
+                                   LAUNCHES_PER_SHAPE * items)])]
+        if kind == "fwd":
+            corr_paths[kind + "_bf16"] += [
+                path_entry(f"{flownet} eval forward, bf16", rows_of,
+                           bf16["eval", flownet])
+                for flownet, rows_of in (("Back2Future", b2f),
+                                         ("FlowNetC6", c6))]
     emit({"kernels": [
         kernel_entry("correlation_forward",
                      "cc_tpu_torch/ops/csrc/correlation.cu",
@@ -2415,6 +2815,14 @@ def main() -> int:
                      "cc_tpu_torch/ops/csrc/correlation.cu",
                      "cc_tpu/ops/correlation_pallas.py:112", bwd_rows,
                      corr_paths["bwd"]),
+        kernel_entry("correlation_forward_bf16",
+                     "cc_tpu_torch/ops/csrc/correlation.cu",
+                     "cc_tpu/ops/correlation_pallas.py:77",
+                     bf16_rows["fwd"], corr_paths["fwd_bf16"]),
+        kernel_entry("correlation_backward_bf16",
+                     "cc_tpu_torch/ops/csrc/correlation.cu",
+                     "cc_tpu/ops/correlation_pallas.py:112",
+                     bf16_rows["bwd"], corr_paths["bwd_bf16"]),
         kernel_entry("row_gather", "cc_tpu_torch/ops/csrc/row_gather.cu",
                      "scripts/exp_gather.py:173", [gather_row],
                      [path_entry("E5 row gather", [gather_row],

@@ -28,7 +28,7 @@ from cc_tpu_torch.cli import test_make3d as tmake3d
 from cc_tpu_torch.eval import kitti_depth as tkd
 from cc_tpu_torch.eval import stillbox as tsb
 from tests.cli_fixtures import H, W, _write_png
-from tests.torch_port_util import save_drawn_checkpoint
+from tests.torch_port_util import computed_once, save_drawn_checkpoint
 
 torch.set_num_threads(2)
 
@@ -50,6 +50,12 @@ POSE_NORM_GUARD = 1e-3
 
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
+    """_ckpts, written once per run."""
+    return computed_once(tmp_path_factory, "eval_depth_ckpts",
+                         lambda: _ckpts(tmp_path_factory))
+
+
+def _ckpts(tmp_path_factory):
     """DispResNet6, DispNetS (run_inference's default) and PoseExpNet with
     2 references and its mask decoder, which test_disp builds without
     (output_exp=False) and so leaves unread, as cc_tpu does."""

@@ -26,7 +26,7 @@ from cc_tpu_torch.cli import test_back2future as tb2f
 from cc_tpu_torch.cli import test_flow as tflow
 from cc_tpu_torch.ops import correlation as tcorr
 from tests.cli_fixtures import H, W
-from tests.torch_port_util import save_drawn_checkpoint
+from tests.torch_port_util import computed_once, save_drawn_checkpoint
 
 torch.set_num_threads(2)
 
@@ -52,6 +52,12 @@ RIGID_SHIFT = [0.9, 1.4]
 
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
+    """_ckpts, written once per run."""
+    return computed_once(tmp_path_factory, "eval_flow_ckpts",
+                         lambda: _ckpts(tmp_path_factory))
+
+
+def _ckpts(tmp_path_factory):
     """The paper's four nets and FlowNetC6, drawn, as the reference names
     its best checkpoints: {dispnet,posenet,masknet,flownet}_model_best."""
     d = tmp_path_factory.mktemp("ckpts")

@@ -225,15 +225,21 @@ def test_nan_pixel_step_is_dropped_not_crashed():
     """A train step on the CPU with one NaN pixel in a reference frame
     (tests/torch_port_util.nan_pixel_step): F's border-padded feature
     warps meet NaN locations, the gradients are not finite, and
-    skip_nonfinite_updates drops the step. In a subprocess, since torch's
-    CPU backward of border mode kills the process on a NaN location."""
+    skip_nonfinite_updates drops the step; then the same step in bf16,
+    the guarded recipe (compute and loss dtype bfloat16, clip 5), dropped
+    by the same guard. In a subprocess, since torch's CPU backward of
+    border mode kills the process on a NaN location."""
     script = ("import torch; torch.set_num_threads(2); "
               "from torch_port_util import nan_pixel_step; "
-              "print(nan_pixel_step('cpu'))")
+              "print(nan_pixel_step('cpu')); "
+              "print(nan_pixel_step('cpu', compute_dtype='bfloat16', "
+              "loss_dtype='bfloat16', clip_grad_norm=5.0))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, TESTS]))
     res = subprocess.run([sys.executable, "-c", script], cwd=TESTS, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
-    got = ast.literal_eval(res.stdout.strip().splitlines()[-1])
-    assert got == {"count": 0, "notfinite": 1, "step": 1,
-                   "loss_finite": False, "unchanged": True}, got
+    got = [ast.literal_eval(line)
+           for line in res.stdout.strip().splitlines()[-2:]]
+    for dtype, g in zip(("float32", "bfloat16"), got):
+        assert g == {"count": 0, "notfinite": 1, "step": 1,
+                     "loss_finite": False, "unchanged": True}, (dtype, g)

@@ -106,6 +106,89 @@ def test_correlation_kernel_matches_plain(cuda, shape, patch, dilation):
     assert torch.equal(tc.correlation_cuda(a, b, patch, dilation), out)
 
 
+def _one_bf16_rounding(out, wide, scale, where: str) -> None:
+    """A bf16 kernel's output against its plain version's float32 sum
+    before the one rounding (`wide`): one bf16 rounding, 2**-8 of the
+    value, plus a sum-order term, 2**-20 of the sum of the terms'
+    magnitudes (`scale`)."""
+    assert out.dtype == torch.bfloat16, where
+    excess = float(((out.float() - wide).abs() - 2.0 ** -8 * wide.abs()
+                    - 2.0 ** -20 * scale).max())
+    assert excess <= 0, f"{where}: {excess} beyond one bf16 rounding"
+
+
+def _bf16_kernels_against_plain(a, b, g, patch, dilation, where) -> None:
+    wa, wb, wg = a.float(), b.float(), g.float()
+    before = (tc.dtype_launches[torch.bfloat16],
+              tc.dtype_backward_launches[torch.bfloat16])
+    out = tc.correlation_cuda(a, b, patch, dilation)
+    dfs = tc.correlation_backward_cuda(a, b, g, patch, dilation)
+    torch.cuda.synchronize()
+    assert (tc.dtype_launches[torch.bfloat16],
+            tc.dtype_backward_launches[torch.bfloat16]) == (
+        before[0] + 1, before[1] + 1)
+    _one_bf16_rounding(out, tc.correlation_plain(wa, wb, patch, dilation),
+                       tc.correlation_plain(wa.abs(), wb.abs(), patch,
+                                            dilation), where + " K1")
+    wide = tc.correlation_backward_plain(wa, wb, wg, patch, dilation)
+    scale = tc.correlation_backward_plain(wa.abs(), wb.abs(), wg.abs(),
+                                          patch, dilation)
+    for i in range(2):
+        _one_bf16_rounding(dfs[i], wide[i], scale[i], f"{where} K1' df{i + 1}")
+    # sums in a fixed order, no atomics: the same bits on every run
+    assert torch.equal(tc.correlation_cuda(a, b, patch, dilation), out)
+    assert all(map(torch.equal, tc.correlation_backward_cuda(
+        a, b, g, patch, dilation), dfs))
+
+
+@pytest.mark.parametrize("shape,patch,dilation",
+                         CORR_CASES + BWD_CASES + FWD_CASES)
+def test_bf16_correlation_kernels_match_plain(cuda, shape, patch, dilation):
+    """The bf16 instantiations of K1 and K1' at every tile configuration
+    and ragged edge of the float32 ones (C off 8 stages element by
+    element), each launch counted as bf16."""
+    bf = lambda t: t.to(torch.bfloat16)
+    a, b = bf(_randn(shape, cuda, 0)), bf(_randn(shape, cuda, 7))
+    g = bf(_randn((*shape[:3], patch * patch), cuda, 3))
+    _bf16_kernels_against_plain(a, b, g, patch, dilation,
+                                f"{shape} P={patch} d={dilation}")
+
+
+def test_bf16_correlation_kernels_take_unaligned_inputs(cuda):
+    """bf16 inputs that start 2 bytes off a 16-byte boundary: both kernels
+    then stage element by element."""
+    shape, patch = (2, 6, 70, 32), 9
+    n = int(np.prod(shape))
+    views = []
+    for seed in (0, 7):
+        t = torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)[1:]
+        views.append(t.view(shape))
+        views[-1].copy_(_randn(shape, cuda, seed))
+    a, b = views
+    assert a.is_contiguous() and a.data_ptr() % 16 == 2
+    g = _randn((*shape[:3], patch * patch), cuda, 3).to(torch.bfloat16)
+    _bf16_kernels_against_plain(a, b, g, patch, 1, "unaligned")
+
+
+def test_bf16_correlation_autograd_runs_the_bf16_kernels(cuda):
+    """`correlation` on bf16 CUDA tensors: a bf16 cost volume from K1 and
+    bf16 gradients from K1', equal to the kernels' own outputs; a dtype
+    the kernels lack raises rather than fall back."""
+    shape, patch = (2, 8, 30, 64), 9
+    a = _randn(shape, cuda, 0).to(torch.bfloat16).requires_grad_()
+    b = _randn(shape, cuda, 7).to(torch.bfloat16).requires_grad_()
+    g = _randn((*shape[:3], patch * patch), cuda, 3).to(torch.bfloat16)
+    out = tc.correlation(a, b, patch)
+    out.backward(g)
+    assert out.dtype == a.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert torch.equal(out, tc.correlation_cuda(a.detach(), b.detach(),
+                                                patch))
+    df1, df2 = tc.correlation_backward_cuda(a.detach(), b.detach(), g, patch)
+    assert torch.equal(a.grad, df1) and torch.equal(b.grad, df2)
+    with pytest.raises(TypeError):
+        tc.correlation(a.detach().half(), b.detach().half(), patch)
+
+
 def test_correlation_kernel_takes_unaligned_inputs(cuda):
     """Contiguous inputs that start 4 bytes off a 16-byte boundary: the
     forward then stages by 4-byte copies."""

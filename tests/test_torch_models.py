@@ -7,6 +7,11 @@ tests/test_models.py) and values drawn with numpy, BatchNorm running stats
 included, so that eval-mode BN is exercised; the weights go to the port
 through cc_tpu_torch.weights, whose state dict must equal cc_tpu's
 export_state_dict exactly.
+
+In bf16 (compute_dtype "bfloat16") each net is held to cc_tpu's apply_net
+in bf16 by the yardstick of torch_port_util.check_bf16. The drawn variables
+and each cc_tpu forward are computed once per test run, however many
+pytest-xdist workers run this module's tests (computed_once).
 """
 import io
 import os
@@ -18,14 +23,17 @@ import jax.numpy as jnp
 import torch
 
 from cc_tpu import models as jmodels
+from cc_tpu.train.state import apply_net as jax_apply_net
 from cc_tpu.train.torch_export import export_state_dict, save_torch_checkpoint
 from cc_tpu_torch import models as tmodels
+from cc_tpu_torch.train.step import apply_net
 from cc_tpu_torch.weights import (
     load_flax_weights, load_pretrained, state_dict_from_flax,
 )
 from cc_tpu_torch.weights import save_torch_checkpoint as save_port_checkpoint
 from tests.torch_port_util import (
-    assert_close, draw_flax_variables, nchw_to_nhwc, nhwc_to_nchw,
+    assert_close, check_bf16, computed_once, draw_flax_variables,
+    nchw_to_nhwc, nhwc_to_nchw,
 )
 
 torch.set_num_threads(2)
@@ -75,11 +83,10 @@ def _args(arch, tgt, refs):
     return (tgt,) if not refs else (tgt, refs)
 
 
-@pytest.fixture(scope="module")
-def flax_vars():
-    """arch -> (module, params, batch_stats) as numpy. The flax init gives
-    the variable trees' structure (traced, not compiled); the values are
-    drawn with numpy."""
+def _drawn_variables() -> dict:
+    """arch -> (params, batch_stats) as numpy. The flax init gives the
+    variable trees' structure (traced, not compiled); the values are drawn
+    with numpy."""
     r = np.random.RandomState(1)
     out = {}
     for arch in ARCHS + VARIANTS:
@@ -88,9 +95,34 @@ def flax_vars():
         args = _args(arch, *_inputs(arch))
         v = jax.eval_shape(lambda k: net.init(k, *args, training=True),
                            jax.random.PRNGKey(0))
-        out[arch] = (net, draw_flax_variables(v["params"], r),
+        out[arch] = (draw_flax_variables(v["params"], r),
                      draw_flax_variables(v.get("batch_stats", {}), r))
     return out
+
+
+@pytest.fixture(scope="module")
+def flax_vars(tmp_path_factory):
+    """arch -> (module, params, batch_stats), the drawn variables computed
+    once per run."""
+    drawn = computed_once(tmp_path_factory, "flax_vars", _drawn_variables)
+    return {arch: (jmodels.build(_arch(arch)[0], **_arch(arch)[1]), *v)
+            for arch, v in drawn.items()}
+
+
+def _cc_forward(tmp_path_factory, flax_vars, arch, training, dtype):
+    """cc_tpu's apply_net of arch in `dtype` (its compute_dtype) on the
+    module's inputs (batch 2 in training, else B), one jit, computed once
+    per run: the flat list of outputs as numpy."""
+    net_j, params, stats = flax_vars[arch]
+    args = _args(arch, *_inputs(arch, 2 if training else B))
+
+    def run():
+        fwd = jax.jit(lambda p, s: jax_apply_net(
+            net_j, p, s, *args, training=training, compute_dtype=dtype)[0])
+        return [np.asarray(o) for o in _flat(jax.device_get(fwd(params,
+                                                                stats)))]
+    return computed_once(tmp_path_factory,
+                         f"cc_forward_{arch}_{training}_{dtype}", run)
 
 
 @pytest.mark.parametrize("arch", ARCHS + VARIANTS)
@@ -204,36 +236,72 @@ def _flat(x):
     return [x]
 
 
+def _port_forward(flax_vars, arch, training, dtype="float32",
+                  hook=None) -> list:
+    """The port's net of arch through apply_net in `dtype`, on the module's
+    inputs, each forward hook of `hook` on every convolution: the flat
+    list of outputs as numpy, NHWC."""
+    _, params, stats = flax_vars[arch]
+    args = _args(arch, *_inputs(arch, 2 if training else B))
+    name, kw = _arch(arch)
+    net_t = load_flax_weights(tmodels.build(name, **kw), name, params, stats)
+    net_t.train(training)
+    hooks = [m.register_forward_hook(hook) for m in net_t.modules()
+             if hook is not None and isinstance(
+                 m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    t_args = [nhwc_to_nchw(a) if isinstance(a, np.ndarray)
+              else [nhwc_to_nchw(x) for x in a] for a in args]
+    with torch.inference_mode():
+        out = apply_net(net_t, dtype, *t_args)
+    for h in hooks:
+        h.remove()
+    for o in _flat(out):
+        assert o.dtype == torch.float32
+    # pose is [B,n,6]
+    return [o.numpy() if o.dim() == 3 else nchw_to_nhwc(o)
+            for o in _flat(out)]
+
+
 @pytest.mark.parametrize("arch,training", [
     (a, t) for a in ARCHS + VARIANTS for t in (False, True)])
-def test_forward_matches(flax_vars, arch, training):
+def test_forward_matches(tmp_path_factory, flax_vars, arch, training):
     """Eval mode: running BN stats, finest outputs. Train mode: batch BN
     stats, every scale (the running-stat update is the training slice's),
     at batch 2: at 128x128 the coarsest BN sees one value per channel at
     batch 1, which torch refuses in training."""
-    net_j, params, stats = flax_vars[arch]
-    variables = {"params": params}
-    if stats:
-        variables["batch_stats"] = stats
-    args = _args(arch, *_inputs(arch, 2 if training else B))
-    ref = jax.jit(lambda v: net_j.apply(v, *args, training=training,
-                                        mutable=["batch_stats"])[0])(variables)
-
-    name, kw = _arch(arch)
-    net_t = load_flax_weights(tmodels.build(name, **kw), name, params, stats)
-    net_t.train(training)
-    t_args = [nhwc_to_nchw(a) if isinstance(a, np.ndarray)
-              else [nhwc_to_nchw(x) for x in a] for a in args]
-    with torch.inference_mode():
-        out = net_t(*t_args)
-
-    outs, refs_out = _flat(out), _flat(ref)
+    refs_out = _cc_forward(tmp_path_factory, flax_vars, arch, training,
+                           "float32")
+    outs = _port_forward(flax_vars, arch, training)
     assert len(outs) == len(refs_out)
     for i, (o, e) in enumerate(zip(outs, refs_out)):
-        e = np.asarray(e)
-        o = o.numpy() if o.dim() == 3 else nchw_to_nhwc(o)  # pose is [B,n,6]
         tol = RTOL * max(1.0, float(np.max(np.abs(e))))
         assert_close(o, e, tol, f"{arch} output {i}")
+
+
+@pytest.mark.parametrize("arch,training", [
+    (a, t) for a in ARCHS + VARIANTS if a in tmodels._REGISTRY
+    for t in (False, True)])
+def test_forward_matches_in_bf16(tmp_path_factory, flax_vars, arch,
+                                 training):
+    """compute_dtype "bfloat16", each net of the registry: the port's
+    apply_net against cc_tpu's (bf16 copies of the parameters, bf16
+    inputs, float32 outputs) by the yardstick of check_bf16, each output
+    over the whole tensor, with cc_tpu's own float32 forward as the
+    reference distance; every convolution of the port's net takes bf16
+    inputs."""
+    cc32 = _cc_forward(tmp_path_factory, flax_vars, arch, training,
+                       "float32")
+    cc16 = _cc_forward(tmp_path_factory, flax_vars, arch, training,
+                       "bfloat16")
+    dtypes = set()
+    port16 = _port_forward(flax_vars, arch, training, "bfloat16",
+                           lambda m, a, o: dtypes.add(a[0].dtype))
+    port32 = _port_forward(flax_vars, arch, training)
+    assert dtypes == {torch.bfloat16}, dtypes
+    assert len(port16) == len(cc16) == len(cc32)
+    for i, outs in enumerate(zip(port16, port32, cc16, cc32)):
+        assert outs[2].dtype == np.float32  # cc_tpu's outputs are float32
+        check_bf16(f"{arch} output {i}", *outs)
 
 
 def test_flownetc6_parameter_count(flax_vars):

@@ -27,7 +27,7 @@ from cc_tpu_torch.losses.photometric import _oob_norm
 from cc_tpu_torch.models.layers import BatchNorm2d
 from cc_tpu_torch.parallel import batch_slice, distributed
 from cc_tpu_torch.train.checkpoint import BEST, CHECKPOINT
-from tests.torch_port_util import assert_close, torchrun
+from tests.torch_port_util import assert_close, computed_once, torchrun
 
 torch.set_num_threads(2)
 
@@ -121,9 +121,15 @@ BN_SHAPES = {"2 rows a process": (4, 3, 5, 4),
 
 @pytest.fixture(scope="module")
 def two_process_layers(tmp_path_factory):
+    """_two_process_layers, computed once per run."""
+    return computed_once(
+        tmp_path_factory, "two_process_layers",
+        lambda: _two_process_layers(tmp_path_factory.mktemp("layers")))
+
+
+def _two_process_layers(tmp):
     """BatchNorm2d, _oob_norm and the helpers on two processes; the spec and
     each process's results."""
-    tmp = tmp_path_factory.mktemp("layers")
     r = np.random.RandomState(0)
     valid = (r.rand(4, 6, 7, 1) > 0.3).astype(np.float32)
     # the first process's rows are wholly out of bounds, the other's not
@@ -271,12 +277,19 @@ def _files(run):
 
 @pytest.fixture(scope="module")
 def cli_runs(scenes, kitti2015_dir, tmp_path_factory):
+    """_cli_runs, computed once per run."""
+    return computed_once(
+        tmp_path_factory, "cli_runs",
+        lambda: _cli_runs(scenes, kitti2015_dir, tmp_path_factory))
+
+
+def _cli_runs(scenes, kitti2015_dir, tmp_path_factory):
     """The train CLI with the same flags in this process and under torchrun
-    with two processes, each in its own directory: for each run its files,
-    recorder lines, summary row and checkpoint's step, and the one
-    process's records and the two processes' output. Only the two
-    processes' checkpoint.pt is kept (for the resumed run), since each
-    checkpoint is 891.5 MB."""
+    with two processes, each in its own directory: the two processes'
+    directory, for each run its files, recorder lines, summary row and
+    checkpoint's step, and the one process's records and the two processes'
+    output. Only the two processes' checkpoint.pt is kept, for the resumed
+    run, which removes it, since each checkpoint is 891.5 MB."""
     mp = pytest.MonkeyPatch()
     _no_launch(mp)
     runs = {"one": tmp_path_factory.mktemp("one_process"),
@@ -302,11 +315,10 @@ def cli_runs(scenes, kitti2015_dir, tmp_path_factory):
         out = torchrun(["-m", "cc_tpu_torch.cli.train",
                         *_argv(scenes, kitti2015_dir)], cwd=str(runs["two"]))
         look("two")
-        yield runs["two"], seen, records, out
+        return runs["two"], seen, records, out
     finally:
         mp.undo()
-        for run in runs.values():
-            shutil.rmtree(run / "checkpoints", ignore_errors=True)
+        shutil.rmtree(runs["one"] / "checkpoints", ignore_errors=True)
 
 
 def test_cli_on_two_processes_matches_one(cli_runs):
@@ -337,11 +349,14 @@ def test_cli_resumes_a_competition_phase_on_two_processes(
     bit-equal, D moves."""
     two = cli_runs[0]
     path = two / "checkpoints" / "dp" / CHECKPOINT
-    before = torch.load(path, weights_only=True)
-    argv = _argv(scenes, kitti2015_dir, "--resume", "--fix-flownet")
-    argv[argv.index("--epoch-size") + 1] = "1"
-    torchrun(["-m", "cc_tpu_torch.cli.train", *argv], cwd=str(two))
-    after = torch.load(path, weights_only=True)
+    try:
+        before = torch.load(path, weights_only=True)
+        argv = _argv(scenes, kitti2015_dir, "--resume", "--fix-flownet")
+        argv[argv.index("--epoch-size") + 1] = "1"
+        torchrun(["-m", "cc_tpu_torch.cli.train", *argv], cwd=str(two))
+        after = torch.load(path, weights_only=True)
+    finally:
+        shutil.rmtree(two / "checkpoints", ignore_errors=True)
     assert (before["step"], after["step"]) == (2, 3)
     for group in ("nets", "mu", "nu"):
         old, new = before[group]["flow"], after[group]["flow"]

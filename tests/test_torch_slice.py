@@ -21,7 +21,9 @@ from cc_tpu_torch.train import TrainConfig, forward_eval, make_models
 from cc_tpu_torch.train.step import _device_normalize as tnorm
 from cc_tpu_torch.weights import load_flax_weights
 from tests.test_train_step import synth_batch, tiny_config
-from tests.torch_port_util import assert_close, draw_flax_variables
+from tests.torch_port_util import (
+    assert_close, computed_once, draw_flax_variables,
+)
 
 torch.set_num_threads(2)
 
@@ -38,7 +40,12 @@ def _port_config(jcfg):
 
 
 @pytest.fixture(scope="module")
-def jax_eval():
+def jax_eval(tmp_path_factory):
+    """_cc_tpu_eval, computed once per run."""
+    return computed_once(tmp_path_factory, "cc_tpu_eval", _cc_tpu_eval)
+
+
+def _cc_tpu_eval():
     """cc_tpu's eval forward on test_train_step's config. init_state gives
     the variables' structure (traced, not compiled); the values are drawn
     with numpy."""

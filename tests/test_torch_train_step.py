@@ -16,7 +16,9 @@ The JAX step is compiled once, with test_train_step's config, batch and
 donate=False: its program is the same as test_train_step's, so the
 persistent compile cache can serve both files. The variables' structure
 comes from jax.eval_shape of init_state and their values are drawn with
-numpy: init_state itself is not run.
+numpy: init_state itself is not run. The compile and the steps it takes run
+once per test run, however many pytest-xdist workers run this module's
+tests or tests/test_torch_bf16.py's (torch_port_util.computed_once).
 """
 import dataclasses
 
@@ -44,7 +46,8 @@ from cc_tpu_torch.weights import (
 from cc_tpu_torch.losses import photometric
 from tests.test_train_step import synth_batch, tiny_config
 from tests.torch_port_util import (
-    assert_close, draw_flax_variables, rows_differ_batch, torchrun,
+    assert_close, check_bf16, check_bf16_update, computed_once,
+    draw_flax_variables, rows_differ_batch, torchrun,
 )
 
 torch.set_num_threads(2)
@@ -85,12 +88,9 @@ def _adam_state(opt_state):
     raise AssertionError("no ScaleByAdamState")
 
 
-@pytest.fixture(scope="module")
-def jax_train():
-    """cc_tpu's jitted train step on test_train_step's config, and a state of
-    drawn variables with zero moments: the module's one compile, which
-    every batch of that config's shapes reuses."""
-    cfg = tiny_config()
+def drawn_state(cfg) -> TrainState:
+    """A cc_tpu TrainState for cfg of drawn variables (numpy, seed 3) and
+    zero moments and counts."""
     shapes = jax.eval_shape(lambda k: init_state(cfg, k),
                             jax.random.PRNGKey(0))
     r = np.random.RandomState(3)
@@ -100,19 +100,41 @@ def jax_train():
     opt_state = jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype),
         jax.eval_shape(jax_make_optimizer(cfg).init, params))
-    state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
-                       step=np.zeros((), np.int32))
+    return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
+                      step=np.zeros((), np.int32))
+
+
+def cc_tpu_steps() -> dict:
+    """cc_tpu's jitted train step on test_train_step's config (the one
+    compile), from drawn_state, on synth_batch and on rows_differ_batch:
+    {"params", "stats": the drawn variables; "synth": (batch, new state,
+    metrics); "rows": (batch, (new params, new stats), metrics)}."""
+    cfg = tiny_config()
+    state = drawn_state(cfg)
     step = jax_build_train_step(cfg, jax_make_models(cfg), donate=False)
-    return cfg, state, step
+    synth = {k: np.array(v) for k, v in synth_batch(cfg).items()}
+    rows = rows_differ_batch(cfg.height, cfg.width, cfg.batch_size)
+    out = {"params": state.params, "stats": state.batch_stats}
+    new_state, metrics = jax.device_get(step(state, synth))
+    out["synth"] = (synth, new_state, metrics)
+    new_state, metrics = jax.device_get(step(state, rows))
+    out["rows"] = (rows, (new_state.params, new_state.batch_stats), metrics)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_train(tmp_path_factory):
+    """cc_tpu_steps, computed once per run; with the config."""
+    return tiny_config(), computed_once(tmp_path_factory, "cc_tpu_steps",
+                                        cc_tpu_steps)
 
 
 @pytest.fixture(scope="module")
 def jax_step(jax_train):
     """One cc_tpu train step on test_train_step's config and batch."""
-    cfg, state, step = jax_train
-    batch = {k: np.array(v) for k, v in synth_batch(cfg).items()}
-    new_state, metrics = jax.device_get(step(state, batch))
-    return cfg, state.params, state.batch_stats, batch, new_state, metrics
+    cfg, steps = jax_train
+    batch, new_state, metrics = steps["synth"]
+    return cfg, steps["params"], steps["stats"], batch, new_state, metrics
 
 
 def _port(jcfg, params, stats, **changes):
@@ -129,13 +151,23 @@ def _by_name(net, tensors):
     return {k: t for (k, _), t in zip(net.named_parameters(), tensors)}
 
 
-@pytest.fixture(scope="module")
-def port_step(jax_step):
-    jcfg, params, stats, batch, _, _ = jax_step
+def port_fp32_step(jcfg, params, stats, batch) -> tuple:
+    """The port's float32 step on jcfg from cc_tpu's variables on batch:
+    (cfg, nets, opt_state, metrics)."""
     cfg, nets = _port(jcfg, params, stats)
     opt_state = make_optimizer(cfg).init(nets)
     metrics = build_train_step(cfg, nets, opt_state)(batch)
     return cfg, nets, opt_state, metrics
+
+
+@pytest.fixture(scope="module")
+def port_step(jax_step, tmp_path_factory):
+    """port_fp32_step from jax_step's variables on its batch, computed once
+    per run (tests/test_torch_bf16.py takes it as its float32 step)."""
+    jcfg, params, stats, batch, _, _ = jax_step
+    return computed_once(
+        tmp_path_factory, "port_fp32_step",
+        lambda: port_fp32_step(jcfg, params, stats, batch))
 
 
 def check_metrics(ref: dict, out: dict) -> None:
@@ -293,7 +325,55 @@ def _row_statistics(cfg, nets, batch) -> tuple[list, torch.Tensor]:
     return sums, means[0]
 
 
-def test_two_processes_take_cc_tpus_global_batch_step(jax_train, tmp_path):
+# the guarded bf16 recipe, tests/test_bf16_step.py's _bf16_cfg
+BF16 = dict(compute_dtype="bfloat16", clip_grad_norm=5.0,
+            skip_nonfinite_updates=True)
+
+
+def _two_process_steps(jcfg, steps, tmp) -> list[dict]:
+    """The port's step on two processes under torchrun (gloo, the CPU), a
+    row each, from cc_tpu_steps' drawn weights on its rows_differ_batch:
+    one launch, two runs of a step each, in float32 and in the guarded
+    bf16 recipe. For each run: each process's backend, world, counts and
+    metrics, process 0's state dict, and whether process 1's equals it."""
+    batch = steps["rows"][0]
+    cfg, nets = _port(jcfg, steps["params"], steps["stats"])
+    spec = {"device": "cpu", "config": dataclasses.asdict(cfg),
+            "nets": nets.state_dict(), "batch": batch,
+            "runs": [[{}], [BF16]], "moments": False}
+    files = [tmp / n for n in ("spec.pt", "rank0.pt", "rank1.pt")]
+    try:
+        torch.save(spec, files[0])
+        torchrun(["tests/torch_port_util.py", "steps", str(files[0]),
+                  str(tmp)])
+        ranks = [torch.load(f) for f in files[1:]]
+    finally:  # about 1.5 GB of weights
+        for f in files:
+            f.unlink(missing_ok=True)
+    runs = []
+    for i in range(2):
+        mine, other = (r["runs"][i]["state"]["nets"] for r in ranks)
+        runs.append({
+            "launch": [(r["world"], r["backend"]) for r in ranks],
+            "counts": [r["runs"][i]["state"]["counts"] for r in ranks],
+            "metrics": [r["runs"][i]["metrics"][0] for r in ranks],
+            "nets": mine,
+            "equal": all(torch.equal(v, other[k]) for k, v in mine.items())})
+    return runs
+
+
+@pytest.fixture(scope="module")
+def two_process_steps(jax_train, tmp_path_factory):
+    """_two_process_steps, computed once per run."""
+    jcfg, steps = jax_train
+    return computed_once(
+        tmp_path_factory, "two_process_steps",
+        lambda: _two_process_steps(jcfg, steps,
+                                   tmp_path_factory.mktemp("two_processes")))
+
+
+def test_two_processes_take_cc_tpus_global_batch_step(jax_train,
+                                                      two_process_steps):
     """The port's step on two processes under torchrun (gloo, the CPU), a
     row each, against cc_tpu's step on the two rows, on a batch whose rows
     differ: metrics, parameters and BatchNorm stats at the module's
@@ -306,38 +386,84 @@ def test_two_processes_take_cc_tpus_global_batch_step(jax_train, tmp_path):
     batch the one-process step misses that too, by 19x in DispResNet6,
     whose ReLU pre-activations lie within fp32 rounding of zero (ROADMAP,
     Queue C). The parameters' 2*lr bound holds through such a flip."""
-    jcfg, state, jstep = jax_train
-    batch = rows_differ_batch(jcfg.height, jcfg.width, jcfg.batch_size)
-    new_state, ref_metrics = jax.device_get(jstep(state, batch))
-    cfg, nets = _port(jcfg, state.params, state.batch_stats)
+    jcfg, steps = jax_train
+    batch, (new_params, new_stats), ref_metrics = steps["rows"]
+    new_state = TrainState(params=new_params, batch_stats=new_stats,
+                           opt_state=None, step=None)
+    cfg, nets = _port(jcfg, steps["params"], steps["stats"])
 
-    sums, means = _row_statistics(cfg, _port(jcfg, state.params,
-                                             state.batch_stats)[1], batch)
+    sums, means = _row_statistics(cfg, _port(jcfg, steps["params"],
+                                             steps["stats"])[1], batch)
     oob_gap = max(float((s[0] - s[1]).abs() / s.max()) for s in sums)
     assert oob_gap > 10 * METRIC_RTOL, oob_gap
     bn_gap = float((means[0] - means[1]).abs().max())
     assert bn_gap > 10 * STATS_RTOL * max(1.0, float(means.abs().max())), \
         bn_gap
 
-    spec = {"device": "cpu", "config": dataclasses.asdict(cfg),
-            "nets": nets.state_dict(), "batch": batch, "runs": [[{}]]}
-    files = [tmp_path / n for n in ("spec.pt", "rank0.pt", "rank1.pt")]
-    try:
-        torch.save(spec, files[0])
-        torchrun(["tests/torch_port_util.py", "steps", str(files[0]),
-                  str(tmp_path)])
-        ranks = [torch.load(f) for f in files[1:]]
-    finally:  # about 1.5 GB of weights and moments
-        for f in files:
-            f.unlink(missing_ok=True)
-    for r in ranks:
-        assert (r["world"], r["backend"]) == (2, "gloo")
-        assert r["runs"][0]["state"]["counts"] == (1, 0, 1)
-        check_metrics(ref_metrics, r["runs"][0]["metrics"][0])
-    mine = ranks[0]["runs"][0]["state"]
-    check_params_and_stats(jcfg, new_state, mine["nets"])
-    other = ranks[1]["runs"][0]["state"]["nets"]
-    assert all(torch.equal(v, other[k]) for k, v in mine["nets"].items())
+    run = two_process_steps[0]
+    assert run["launch"] == [(2, "gloo")] * 2
+    assert run["counts"] == [(1, 0, 1)] * 2
+    for metrics in run["metrics"]:
+        check_metrics(ref_metrics, metrics)
+    check_params_and_stats(jcfg, new_state, run["nets"])
+    assert run["equal"]
+
+
+def test_two_processes_take_one_process_bf16_step(jax_train,
+                                                  two_process_steps):
+    """The guarded bf16 step (compute_dtype bfloat16, clip 5, non-finite
+    guard) on two processes, a row each, against the port's bf16 step on
+    the whole batch in this process, from the same weights; the processes
+    equal bit for bit. The global-batch BatchNorm and out-of-bounds sums
+    take bf16 activations and sum in float32.
+
+    Held, with one process's float32 step as the reference distance and
+    the two processes' float32 run (the launch's first) as their own: the
+    six metrics (one vector) and each BatchNorm running stat by the bf16
+    yardstick (torch_port_util.check_bf16), within 2 d + 2**-8 of one
+    process's bf16 and at least 0.1 d from their float32; each net's
+    update by torch_port_util.check_bf16_update (the yardstick on the
+    update, and its sign where one process's gradients lie far above
+    Adam's eps), which fails a step that leaves the masters as they are;
+    and the parameters to 2*lr. Not to the float32 step's METRIC_RTOL,
+    STATS_RTOL and PARAM_MOVED_SHARE: bf16 rounds every convolution's and
+    BatchNorm's float32 sums, which two processes take in another order
+    (a row a process), so elements land on the other side of a rounding
+    and thresholded targets flip (the consensus loss 1.4e-3 apart on this
+    batch), and where a gradient lies near Adam's eps one bf16 step of it
+    moves the first update by more than 1e-6 (12.5% of the entries)."""
+    jcfg, steps = jax_train
+    batch = steps["rows"][0]
+    one = {}
+    for key, changes in (("bf16", BF16), ("fp32", {})):
+        cfg, nets = _port(jcfg, steps["params"], steps["stats"], **changes)
+        theta0 = {k: v.clone() for k, v in nets.state_dict().items()}
+        opt_state = make_optimizer(cfg).init(nets)
+        metrics = build_train_step(cfg, nets, opt_state)(batch)
+        grads = {f"{n}.{k}": g / (1.0 - cfg.momentum)
+                 for n in opt_state.mu
+                 for k, g in _by_name(nets[n], opt_state.mu[n]).items()}
+        one[key] = ({k: float(v) for k, v in metrics.items()},
+                    nets.state_dict(), grads)
+    (m16, ref, g16), (m32, ref32, g32) = one["bf16"], one["fp32"]
+    two32, run = two_process_steps
+    assert run["launch"] == [(2, "gloo")] * 2
+    assert run["counts"] == [(1, 0, 1)] * 2
+    vector = lambda m: np.array([m[k] for k in METRICS])
+    for metrics, metrics32 in zip(run["metrics"], two32["metrics"]):
+        check_bf16("metrics", vector(metrics), vector(metrics32),
+                   vector(m16), vector(m32))
+    for k, v in ref.items():
+        if k.endswith(("running_mean", "running_var")):
+            check_bf16(k, run["nets"][k], two32["nets"][k], v, ref32[k])
+        elif v.is_floating_point():
+            assert_close(run["nets"][k], v, 2 * jcfg.lr + 1e-6, k)
+    for name in _archs(jcfg):
+        pick = lambda d: {k: d[k] for k in g16 if k.startswith(name + ".")}
+        print(name, check_bf16_update(
+            name, pick(theta0), pick(run["nets"]), pick(two32["nets"]),
+            pick(ref), pick(ref32), pick(g16), pick(g32)))
+    assert run["equal"]
 
 
 def test_batchnorm_running_stats_follow_flax():
@@ -454,10 +580,23 @@ def test_flownetc6_fix_flownet_step_keeps_f(flownetc6_steps):
 
 @pytest.mark.parametrize("change", [
     dict(compute_dtype="bfloat16"), dict(loss_dtype="bfloat16"),
-    dict(flownet="PWCNet"), dict(posenet="PoseExpNet")])
+    dict(flownet="PWCNet"), dict(posenet="PoseExpNet"),
+    dict(compute_dtype="float16"), dict(loss_dtype="float16")])
 def test_unported_configs_raise(change):
+    """The configurations the port does not run raise; the two bf16 dtypes,
+    once refused, build a step and run the eval forward (finite, float32
+    outputs; tests/test_torch_bf16.py holds them to cc_tpu)."""
     cfg = TrainConfig(height=128, width=128, batch_size=1,
                       flownet="FlowNetC6").replace(**change)
+    if "bfloat16" in change.values():
+        nets = make_models(cfg, device="cpu")
+        build_train_step(cfg, nets, make_optimizer(cfg).init(nets))
+        batch = {k: v[:1] for k, v in synth_batch(tiny_config()).items()}
+        out = forward_eval(cfg, nets, batch)
+        for key in ("disp", "pose", "flow_fwd"):
+            assert out[key].dtype == torch.float32, key
+            assert bool(torch.isfinite(out[key]).all()), key
+        return
     with pytest.raises(NotImplementedError):
         build_train_step(cfg, None, None)
     with pytest.raises(NotImplementedError):

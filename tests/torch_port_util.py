@@ -13,13 +13,15 @@ none):
         tests/torch_port_util.py steps|layers SPEC OUT
 
 `steps` takes train steps on this process's rows of a global batch
-(run_steps; processes other than 0 keep no moments), `layers` runs the global-batch BatchNorm, the out-of-bounds
+(run_steps; processes other than 0 keep no moments, nor does process 0
+when the spec's "moments" is False), `layers` runs the global-batch BatchNorm, the out-of-bounds
 barrier and the collective helpers on its rows; each process writes what
 it got to OUT/rank<i>.pt. `torchrun` launches it.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -30,10 +32,126 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def computed_once(tmp_path_factory, name: str, fn):
+    """fn() once per test run, whatever pytest-xdist's workers ask for it:
+    the first worker to ask computes it while it holds a file lock beside
+    the workers' temporary directories, and pickles it there; the others
+    wait for the lock and load it. Outside xdist, fn(). The value must
+    pickle (numpy arrays, tensors, plain containers)."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return fn()
+    from filelock import FileLock
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
+    with FileLock(f"{path}.lock"):
+        if path.is_file():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = fn()
+        with open(f"{path}.part", "wb") as f:
+            pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(f"{path}.part", path)
+        return value
+
+
 def to_numpy(x) -> np.ndarray:
+    """A tensor or array as numpy; bfloat16 tensors as float32."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def rel(a, b) -> float:
+    """||a - b||_2 / ||b||_2 over the whole tensor, in float64 (0 where
+    both are 0)."""
+    a = to_numpy(a).astype(np.float64)
+    b = to_numpy(b).astype(np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    num, den = np.linalg.norm(a - b), np.linalg.norm(b)
+    return float(num / den) if den else float(num)
+
+
+def check_bf16(name: str, port16, port32, cc16, cc32,
+               lower: bool = True) -> dict:
+    """The yardstick of the port's bfloat16 paths against cc_tpu's, which
+    itself moves away from its float32 by d = rel(cc16, cc32):
+
+    - upper bound (matches cc_tpu): rel(port16, cc16) <= 2 d + 2**-8;
+    - lower bound (bf16 really ran): rel(port16, port32) >= 0.1 d, which
+      a port that ran float32 would miss (0); `lower=False` leaves it out
+      where the caller checks the dtype instead.
+
+    The bound on the lower side sits well below 1 because cc_tpu rounds
+    more often than the port (its 3x3 tap-matmul convs add nine bf16
+    partial sums; torch's convolution rounds once). Returns the numbers."""
+    return _yardstick(name, rel(port16, cc16), rel(cc16, cc32),
+                      rel(port16, port32) if lower else None)
+
+
+def _yardstick(name: str, up: float, d: float, lo: float | None) -> dict:
+    got = {"rel_port_cc": up, "rel_cc_bf16_fp32": d,
+           "upper": 2 * d + 2.0 ** -8}
+    assert up <= got["upper"], (
+        f"{name}: rel(port bf16, cc_tpu bf16) {up:.3g} > 2 * {d:.3g} + 2^-8")
+    if lo is not None:
+        got["rel_port_bf16_fp32"] = lo
+        assert lo >= 0.1 * d, (
+            f"{name}: rel(port bf16, port fp32) {lo:.3g} < 0.1 * {d:.3g}: "
+            f"did bf16 run?")
+    return got
+
+
+# Adam's first step moves a parameter whose gradient lies far above its eps
+# (1e-8) by about lr * sign(gradient). On the entries whose gradient exceeds
+# BIG_GRAD in both reference steps, the share whose bf16 update has the
+# reference bf16 update's sign is at least UPDATE_SIGN_SHARE. Against
+# cc_tpu it measured 89.2% (the flow net) to 100% a net; cc_tpu's own bf16
+# step agrees with its float32 step on 98.4-100%. Masters that a step
+# leaves as they are read 0, an update of the wrong sign about 0.
+BIG_GRAD = 1e-4
+UPDATE_SIGN_SHARE = 0.8
+
+
+def check_bf16_update(name: str, theta0: dict, port16: dict, port32: dict,
+                      cc16: dict, cc32: dict, grad16: dict,
+                      grad32: dict) -> dict:
+    """A net's first update in bf16, delta = parameters after the step less
+    those before it over all the net's parameters as one vector, against
+    cc_tpu's (or another reference's) bf16 update:
+
+    - the yardstick of check_bf16 on delta, with rel(delta cc16, delta
+      cc32) as the reference distance;
+    - the sign share above (BIG_GRAD, UPDATE_SIGN_SHARE), on the entries
+      whose gradient, grad16 and grad32 of the two reference steps, is
+      far above Adam's eps in both.
+
+    Each argument is a dict over the same parameter names (the net's
+    parameters, no buffers) of tensors or arrays: theta0 the parameters
+    before the step, the next four after it, the last two the reference
+    steps' gradients. Returns the numbers."""
+    sq = dict.fromkeys(("up", "d", "lo", "cc16", "cc32", "port32"), 0.0)
+    agree = n_big = 0
+    for k, t0 in theta0.items():
+        t0 = to_numpy(t0).astype(np.float64)
+        p16, p32, c16, c32 = (to_numpy(x[k]).astype(np.float64) - t0
+                              for x in (port16, port32, cc16, cc32))
+        for key, x in (("up", p16 - c16), ("d", c16 - c32),
+                       ("lo", p16 - p32), ("cc16", c16), ("cc32", c32),
+                       ("port32", p32)):
+            sq[key] += float(np.sum(x * x))
+        big = ((np.abs(to_numpy(grad16[k])) > BIG_GRAD)
+               & (np.abs(to_numpy(grad32[k])) > BIG_GRAD))
+        agree += int(np.sum(np.sign(p16[big]) == np.sign(c16[big])))
+        n_big += int(big.sum())
+    ratio = lambda a, b: float(np.sqrt(sq[a] / sq[b])) if sq[b] else 0.0
+    got = _yardstick(f"{name} update", ratio("up", "cc16"),
+                     ratio("d", "cc32"), ratio("lo", "port32"))
+    got.update(sign_entries=n_big, sign_share=agree / max(n_big, 1))
+    assert n_big and got["sign_share"] >= UPDATE_SIGN_SHARE, (
+        f"{name} update: the sign of cc_tpu's on {got['sign_share']:.3g} "
+        f"of {n_big} entries < {UPDATE_SIGN_SHARE}")
+    return got
 
 
 def nhwc_to_nchw(x) -> torch.Tensor:
@@ -103,19 +221,20 @@ def rows_differ_batch(h: int, w: int, b: int = 2, nref: int = 4,
             "intrinsics_inv": np.linalg.inv(k).astype(np.float32)}
 
 
-def nan_pixel_step(device: str) -> dict:
+def nan_pixel_step(device: str, **changes) -> dict:
     """One train step of the port (Back2Future, skip_nonfinite_updates, a
-    128x128 batch of 2) on `device`, on a batch with one NaN pixel in a
-    reference frame: F's feature warps, which sample with border padding,
-    then meet NaN locations in the forward and the backward. Returns the
-    optimizer's counts and whether every parameter stayed as it was.
-    Run it in a subprocess: where a backward crashes, the process dies."""
+    128x128 batch of 2, and the TrainConfig `changes`, e.g. bf16's) on
+    `device`, on a batch with one NaN pixel in a reference frame: F's
+    feature warps, which sample with border padding, then meet NaN
+    locations in the forward and the backward. Returns the optimizer's
+    counts and whether every parameter stayed as it was. Run it in a
+    subprocess: where a backward crashes, the process dies."""
     from cc_tpu_torch.train import (
         TrainConfig, build_train_step, make_models, make_optimizer,
     )
     torch.manual_seed(0)
     cfg = TrainConfig(height=128, width=128, batch_size=2,
-                      skip_nonfinite_updates=True)
+                      skip_nonfinite_updates=True).replace(**changes)
     nets = make_models(cfg, device=device)
     opt_state = make_optimizer(cfg).init(nets)
     r = np.random.RandomState(0)
@@ -296,7 +415,8 @@ def _worker(mode: str, spec_path: str, out_dir: str) -> None:
     distributed.warmup_collectives(device)
     out = ({"runs": run_steps(spec, device)} if mode == "steps"
            else _layers(spec, device))
-    if mode == "steps" and not distributed.is_primary():
+    if mode == "steps" and (not distributed.is_primary()
+                            or not spec.get("moments", True)):
         # only process 0's moments are compared: the others' files hold
         # their nets (for equality) and counts, a third of the bytes
         for run in out["runs"]:
